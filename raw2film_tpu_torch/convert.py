@@ -1,0 +1,37 @@
+"""Carry the JAX package's film bundle and render config across to the port.
+
+``bundle_from_numpy`` takes the JAX bundle dict (its leaves as numpy arrays,
+``np.asarray`` of each) and gives the port's bundle of float32 tensors;
+``config_from_jax`` maps a JAX ``RenderConfig`` to the port's, dropping the
+fields that exist only for the TPU's scoped-VMEM ladder (``fusion``,
+``conservative_tiles``). Neither imports JAX: they read attributes and
+arrays only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raw2film_tpu_torch.pipeline.render import RenderConfig
+
+
+def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
+    """JAX bundle dict -> dict of float32 tensors on ``device``; tuple
+    leaves (the H&D curves) stay tuples."""
+
+    def leaf(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return {
+        k: tuple(leaf(a) for a in v) if isinstance(v, tuple) else leaf(v)
+        for k, v in jax_bundle.items()
+    }
+
+
+def config_from_jax(cfg) -> RenderConfig:
+    """JAX RenderConfig -> the port's RenderConfig (same field values)."""
+    names = {f.name for f in dataclasses.fields(RenderConfig)}
+    return RenderConfig(**{k: getattr(cfg, k) for k in names})

@@ -1,0 +1,113 @@
+// Shared device helpers of the port's kernels: reflect-101 borders, the
+// exp2/log2 forms of raw2film_tpu/ops/fastmath.py, the display encodes and
+// the PCG-3D grain hash.
+//
+// Every entry point is a plain C function (loaded with ctypes by
+// raw2film_tpu_torch/kernels/build.py) that launches on the stream it is
+// given, allocates nothing, and returns cudaGetLastError() after its launch.
+//
+// Built without --use_fast_math: exp2f/log2f are the accurate library forms
+// (2 and 1 ulp), not the __exp2f/__log2f approximations.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define R2F_API extern "C" __attribute__((visibility("default")))
+
+namespace r2f {
+
+// float32 roundings of log2(10), log10(2), log2(e), ln(2), as the JAX
+// package's fastmath holds them.
+constexpr float LOG2_10 = 0x1.a934f0p+1f;
+constexpr float LOG10_2 = 0x1.344136p-2f;
+constexpr float LOG2_E = 0x1.715476p+0f;
+constexpr float LN_2 = 0x1.62e430p-1f;
+
+// Source index of position i on a length-n axis extended by reflect-101;
+// pads longer than the axis reflect again (numpy's "reflect").
+__device__ __forceinline__ int reflect101(int i, int n) {
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
+  i %= period;
+  if (i < 0) i += period;
+  return i >= n ? period - i : i;
+}
+
+__device__ __forceinline__ float pow10_(float x) { return exp2f(x * LOG2_10); }
+__device__ __forceinline__ float log10_(float x) { return log2f(x) * LOG10_2; }
+__device__ __forceinline__ float expe(float x) { return exp2f(x * LOG2_E); }
+
+// w * log(1 + exp(u / w)) with inv_w = 1 / w precomputed in float32.
+__device__ __forceinline__ float softplus(float u, float w, float inv_w) {
+  const float t = u * inv_w;
+  return w * (fmaxf(t, 0.0f) + LN_2 * log2f(1.0f + exp2f(-fabsf(t) * LOG2_E)));
+}
+
+__device__ __forceinline__ float powc(float x, float p) {
+  return exp2f(log2f(fmaxf(x, 1e-30f)) * p);
+}
+
+// Display transfer codes; the order of raw2film_tpu_torch/ops/print_encode.py
+// GAMMA_CODES.
+enum Gamma : int {
+  GAMMA_LINEAR = 0,
+  GAMMA_SRGB = 1,  // also "Display P3"
+  GAMMA_REC709 = 2,
+  GAMMA_22 = 3,
+  GAMMA_24 = 4,
+  GAMMA_LOGC3 = 5,
+};
+
+__device__ __forceinline__ float encode(float x, int gamma) {
+  x = fminf(fmaxf(x, 0.0f), 1.0f);
+  switch (gamma) {
+    case GAMMA_SRGB:
+      return x <= 0.0031308f ? 12.92f * x
+                             : 1.055f * powc(x, 0.41666666f) - 0.055f;
+    case GAMMA_REC709:  // breakpoint is strict here, <= for sRGB
+      return x < 0.018f ? 4.5f * x : 1.099f * powc(x, 0.45f) - 0.099f;
+    case GAMMA_22:
+      return powc(x, 0.45454547f);
+    case GAMMA_24:
+      return powc(x, 0.41666666f);
+    case GAMMA_LOGC3: {
+      const float c_log10_2 = 0.24719f * LOG10_2;
+      return x > 0.010591f ? c_log10_2 * log2f(5.555556f * x + 0.052272f) + 0.385537f
+                           : 5.367655f * x + 0.092809f;
+    }
+    default:
+      return x;
+  }
+}
+
+// PCG-3D (Jarzynski & Olano) in native uint32 arithmetic, wrapping mod 2^32:
+// raw2film_tpu/ops/pallas_grain.py::_pcg3d.
+__device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
+                                      uint32_t& a, uint32_t& b) {
+  uint32_t v0 = x * 1664525u + 1013904223u;
+  uint32_t v1 = y * 1664525u + 1013904223u;
+  uint32_t v2 = z * 1664525u + 1013904223u;
+  v0 += v1 * v2;
+  v1 += v2 * v0;
+  v2 += v0 * v1;
+  v0 ^= v0 >> 16;
+  v1 ^= v1 >> 16;
+  v2 ^= v2 >> 16;
+  v0 += v1 * v2;
+  v1 += v2 * v0;
+  a = v0;
+  b = v1;  // the third word is unused by the grain normals
+}
+
+// Channel salt of the hash's z coordinate: ch * 0x9E3779B9 + seed.
+__device__ __forceinline__ uint32_t grain_z(int ch, uint32_t seed) {
+  return static_cast<uint32_t>(ch) * 0x9E3779B9u + seed;
+}
+
+// Binomial(64, 1/2) normal from the two hash words: (S - 32) / 4.
+__device__ __forceinline__ float grain_normal(uint32_t a, uint32_t b) {
+  return (static_cast<float>(__popc(a) + __popc(b)) - 32.0f) * 0.25f;
+}
+
+}  // namespace r2f

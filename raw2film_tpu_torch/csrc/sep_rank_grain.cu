@@ -1,0 +1,226 @@
+// K2: sum of separable rank-1 convolutions, with an optional film-grain
+// epilogue.
+//
+// Replaces raw2film_tpu/ops/pallas_conv2.py::fused_sep_rank_mxu (the TPU
+// kernel _fused_rank_mxu_kernel) and its grain epilogue,
+// raw2film_tpu/ops/pallas_grain.py::grain_field_block and
+// grain_amplitude_block. On the main path it is the per-channel MTF
+// (3 channels x 4 ranks x 23 taps at 45 MP) followed by grain.
+//
+//   out[c] = sum_r colconv(u[c,r]) o rowconv(v[c,r]) (img[c]),  reflect-101
+//   grain:   out = max(out + amp(out) * field, 0)
+//   field(y, x) = sum_qx t[qx] sum_qy t[qy] n(y + qy, x + qx)
+//   n = (popc(a) + popc(b) - 32) / 4, (a, b) = PCG-3D(x, y + row_off,
+//                                                      c * 0x9E3779B9 + seed)
+//
+// Bound on the H100: arithmetic and shared-memory traffic, not device
+// memory. At 45 MP each output takes about 4 x (23 + 23) = 184 FMAs (plus
+// the halo columns of the column pass) against 8 bytes of device traffic.
+//
+// Design: one block per (channel, 32-row x 64-column tile). The block stages
+// the reflect-101 window (tile + kernel halo) in shared memory once; per
+// rank it runs the column pass into a shared buffer, then the row pass,
+// and accumulates the ranks in registers (8 outputs per thread). Taps live
+// in a small device buffer, so any tap length and rank count serve without
+// a rebuild; ranks that are all zero (the padding of a per-channel stack)
+// are skipped. The grain epilogue regenerates its noise window from the
+// hash, so no block reads a neighbour's data. Taps stay float32: the TPU's
+// bf16 "dc" tap rescale is an artifact of its matrix unit and is not
+// carried over.
+#include "common.cuh"
+
+namespace {
+
+constexpr int TW = 64;   // tile width  (blockDim.x)
+constexpr int TY = 4;    // blockDim.y
+constexpr int RPT = 8;   // rows per thread
+constexpr int TH = TY * RPT;
+constexpr int NT = TW * TY;
+constexpr int MAX_GRAIN_TAPS = 31;
+
+struct GrainArgs {
+  uint32_t seed;
+  uint32_t row_off;
+  int ntaps;
+  float taps[MAX_GRAIN_TAPS];
+};
+
+__global__ void __launch_bounds__(NT)
+    sep_rank_kernel(const float* __restrict__ img, float* __restrict__ out,
+                    int H, int W, const float* __restrict__ taps,
+                    const int* __restrict__ nrank, int per_channel, int R,
+                    int KV, int KH, int has_grain,
+                    const float* __restrict__ prm, GrainArgs g) {
+  extern __shared__ float smem[];
+  const int c = blockIdx.z;
+  const int cb = per_channel ? c : 0;
+  const int rv = KV / 2;
+  const int rw = KH / 2;
+  const int EW = TW + 2 * rw;  // window / column-pass width
+  const int WH = TH + 2 * rv;  // window height
+  const int tk = KV + KH;
+  float* tap = smem;               // R * (KV + KH)
+  float* win = smem + R * tk;      // WH * EW, later the grain noise window
+  float* tmp = win + (has_grain ? max(WH * EW, (TH + g.ntaps - 1) * (TW + g.ntaps - 1))
+                                : WH * EW);  // TH * EW column-pass rows
+
+  const int x0 = blockIdx.x * TW;
+  const int y0 = blockIdx.y * TH;
+  const int tid = threadIdx.y * TW + threadIdx.x;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const float* src = img + c * plane;
+
+  for (int i = tid; i < R * tk; i += NT) tap[i] = taps[cb * R * tk + i];
+  for (int i = tid; i < WH * EW; i += NT) {
+    const int wy = i / EW;
+    const int wx = i % EW;
+    const int gy = r2f::reflect101(y0 + wy - rv, H);
+    const int gx = r2f::reflect101(x0 + wx - rw, W);
+    win[i] = src[static_cast<size_t>(gy) * W + gx];
+  }
+  __syncthreads();
+
+  float acc[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) acc[k] = 0.0f;
+
+  const int nr = nrank[cb];
+  for (int r = 0; r < nr; ++r) {
+    const float* u = tap + r * tk;
+    const float* v = u + KV;
+    for (int i = tid; i < TH * EW; i += NT) {
+      const int ty = i / EW;
+      const int tx = i % EW;
+      const float* col = win + ty * EW + tx;
+      float s = u[0] * col[0];
+      for (int q = 1; q < KV; ++q) s += u[q] * col[q * EW];
+      tmp[i] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const float* row = tmp + (threadIdx.y + TY * k) * EW + threadIdx.x;
+      float s = v[0] * row[0];
+      for (int q = 1; q < KH; ++q) s += v[q] * row[q];
+      acc[k] += s;
+    }
+    __syncthreads();
+  }
+
+  const int x = x0 + threadIdx.x;
+  if (has_grain) {
+    const int nt = g.ntaps;
+    const int GW = TW + nt - 1;
+    const int GH = TH + nt - 1;
+    const uint32_t z = r2f::grain_z(c, g.seed);
+    for (int i = tid; i < GH * GW; i += NT) {
+      const int wy = i / GW;
+      const int wx = i % GW;
+      uint32_t a, b;
+      r2f::pcg3d(static_cast<uint32_t>(x0 + wx),
+                 static_cast<uint32_t>(y0 + wy) + g.row_off, z, a, b);
+      win[i] = r2f::grain_normal(a, b);
+    }
+    __syncthreads();
+    for (int i = tid; i < TH * GW; i += NT) {
+      const float* col = win + i;
+      float s = g.taps[0] * col[0];
+      for (int q = 1; q < nt; ++q) s += g.taps[q] * col[q * GW];
+      tmp[i] = s;
+    }
+    __syncthreads();
+    const float rms_eff = prm[0], floor_ = prm[1], peak_half = prm[2];
+    const float inv_width = prm[3], lo = prm[4], inv_rng = prm[5];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const float* row = tmp + (threadIdx.y + TY * k) * GW + threadIdx.x;
+      float field = g.taps[0] * row[0];
+      for (int q = 1; q < nt; ++q) field += g.taps[q] * row[q];
+      const float d = acc[k];
+      const float t = (d - lo) * inv_rng;
+      const float e = (t - peak_half - 0.25f) * inv_width;
+      const float shape = floor_ + (1.0f - floor_) * r2f::expe(-0.5f * (e * e));
+      acc[k] = fmaxf(d + rms_eff * shape * field, 0.0f);
+    }
+  }
+
+  if (x >= W) return;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int y = y0 + threadIdx.y + TY * k;
+    if (y < H) out[c * plane + static_cast<size_t>(y) * W + x] = acc[k];
+  }
+}
+
+}  // namespace
+
+// img, out: (C, H, W) float32. taps: (Cb, R, KV + KH) float32 on the device,
+// column taps then row taps per rank; nrank: (Cb,) int32, the ranks to run
+// per channel; Cb is C (per_channel=1) or 1. prm: 6 device floats
+// [rms_eff, floor, peak_half, inv_width, lo, inv_rng] and grain_taps
+// (host, n_grain_taps <= 31) when has_grain.
+R2F_API int r2f_sep_rank(const float* img, float* out, int C, int H, int W,
+                         const float* taps, const int* nrank, int per_channel,
+                         int R, int KV, int KH, int has_grain,
+                         unsigned int seed, unsigned int row_off,
+                         const float* prm, const float* grain_taps,
+                         int n_grain_taps, void* stream) {
+  GrainArgs g{};
+  g.seed = seed;
+  g.row_off = row_off;
+  g.ntaps = has_grain ? n_grain_taps : 1;
+  if (has_grain && (n_grain_taps < 1 || n_grain_taps > MAX_GRAIN_TAPS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < g.ntaps; ++i) g.taps[i] = has_grain ? grain_taps[i] : 1.0f;
+
+  const int EW = TW + 2 * (KH / 2);
+  const int WH = TH + 2 * (KV / 2);
+  int region = WH * EW;
+  if (has_grain) {
+    const int gwin = (TH + g.ntaps - 1) * (TW + g.ntaps - 1);
+    region = region > gwin ? region : gwin;
+  }
+  const int tmp_w = has_grain && TW + g.ntaps - 1 > EW ? TW + g.ntaps - 1 : EW;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(R) * (KV + KH) + region + TH * tmp_w);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sep_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 block(TW, TY);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, C);
+  sep_rank_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      img, out, H, W, taps, nrank, per_channel, R, KV, KH, has_grain, prm, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Test hook for the grain hash: the two PCG-3D words of every position of an
+// (h, w) grid at origin (x0, y0), channel salt ch, as the K2 epilogue
+// computes them. a, b: (h, w) uint32 (stored as int32).
+namespace {
+__global__ void hash_words_kernel(uint32_t* a, uint32_t* b, int h, int w,
+                                  int x0, int y0, int ch, uint32_t seed,
+                                  uint32_t row_off) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  uint32_t wa, wb;
+  r2f::pcg3d(static_cast<uint32_t>(x0 + x), static_cast<uint32_t>(y0 + y) + row_off,
+             r2f::grain_z(ch, seed), wa, wb);
+  a[static_cast<size_t>(y) * w + x] = wa;
+  b[static_cast<size_t>(y) * w + x] = wb;
+}
+}  // namespace
+
+R2F_API int r2f_hash_words(void* a, void* b, int h, int w, int x0, int y0,
+                           int ch, unsigned int seed, unsigned int row_off,
+                           void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((w + 31) / 32, (h + 7) / 8);
+  hash_words_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(a), static_cast<uint32_t*>(b), h, w, x0, y0, ch,
+      seed, row_off);
+  return static_cast<int>(cudaGetLastError());
+}

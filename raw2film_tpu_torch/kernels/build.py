@@ -1,0 +1,179 @@
+"""Build the port's CUDA kernels from ``csrc/`` and bind them with ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds). The
+library lands in ``raw2film_tpu_torch/_build/``, named by a hash of the
+sources and flags, so a stale build is never loaded. It is built at first
+use, inside the process that needs it; nothing is compiled at import.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0.
+
+Dispatch rule of every kernel wrapper (:func:`use_kernel`): a tensor on the
+CPU takes the wrapper's plain PyTorch version; a CUDA tensor launches the
+kernel or raises. The one exception is :func:`plain_reference`, an explicit
+reference mode that runs the plain versions on the card so that a caller
+can compare a whole render against them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# Launch counts of the main path's kernels: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+launches = {"demosaic": 0, "sep_rank": 0, "print_encode": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_SIGNATURES = {
+    "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "r2f_sep_rank": (
+        _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P,
+    ),
+    "r2f_hash_words": (_P, _P, _I, _I, _I, _I, _I, _U, _U, _P),
+    "r2f_print_encode": (
+        _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_mode = threading.local()
+build_log = ""
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f)
+        for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libr2f_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library if it is missing; returns its path. The
+    compiler's register and spill report is kept in ``build_log``."""
+    global build_log
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.r2f_error_string.argtypes = [ctypes.c_int]
+            handle.r2f_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = lib().r2f_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextlib.contextmanager
+def plain_reference():
+    """Run every kernel wrapper's plain version, also on CUDA tensors (this
+    thread only). For checking the kernels against the plain path; it is
+    never entered on the main path."""
+    old = getattr(_mode, "plain", False)
+    _mode.plain = True
+    try:
+        yield
+    finally:
+        _mode.plain = old
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True: launch the kernel (CUDA tensor). False: the plain version (CPU
+    tensor, or inside :func:`plain_reference`). Other devices raise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return not getattr(_mode, "plain", False)
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    """Check what a kernel takes: dtype, shape, contiguity, device."""
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: on {t.device}, want a CUDA device")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: on {t.device}, but the current device is cuda:{torch.cuda.current_device()}"
+        )

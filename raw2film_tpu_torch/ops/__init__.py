@@ -1,0 +1,2 @@
+"""Image operations of the port; kernels K1-K3 sit behind ``demosaic``,
+``sep_rank`` and ``print_encode``."""

@@ -1,0 +1,128 @@
+"""Bayer demosaic: Malvar-He-Cutler 5x5, with the input transform fused.
+
+The counterpart of ``raw2film_tpu/ops/demosaic.py::demosaic_mhc`` and
+``demosaic_exposure``. On a CUDA tensor both launch kernel K1
+(``csrc/demosaic.cu``, the port of ``pallas_demosaic.demosaic_mhc_pallas``);
+on a CPU tensor they run :func:`demosaic_plain`, which mirrors that kernel's
+arithmetic (the grouped pair sums) in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.ops.conv import pad_reflect
+
+PATTERNS = {
+    "RGGB": (0, 0),
+    "BGGR": (1, 1),
+    "GRBG": (0, 1),
+    "GBRG": (1, 0),
+}
+R = 2  # stencil radius
+
+
+def _norm_pair(norm) -> tuple[float, float] | None:
+    """(black, inv_range) as float32 values, or None."""
+    if norm is None:
+        return None
+    if isinstance(norm, torch.Tensor):
+        norm = norm.detach().cpu().numpy()
+    n = np.asarray(norm, np.float32).reshape(-1)
+    return float(n[0]), float(n[1])
+
+
+def normalize(bayer: torch.Tensor, norm) -> torch.Tensor:
+    """clip01((x - black) * inv_range) in float32 (render.py:546-548 of the
+    JAX package)."""
+    black, inv_range = _norm_pair(norm)
+    return torch.clamp((bayer.to(torch.float32) - black) * inv_range, 0.0, 1.0)
+
+
+def demosaic_plain(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) -> torch.Tensor:
+    """Plain version of K1: (H, W) -> (3, H, W) float32; with ``mat`` (3x3),
+    max(mat @ clip01(rgb), 0)."""
+    x = normalize(bayer, norm) if norm is not None else bayer.to(torch.float32)
+    h, w = x.shape
+    p = pad_reflect(x, R, R)
+
+    def sh(dy, dx):
+        return p[dy : dy + h, dx : dx + w]
+
+    m = sh(2, 2)
+    h1 = sh(2, 1) + sh(2, 3)
+    v1 = sh(1, 2) + sh(3, 2)
+    h2 = sh(2, 0) + sh(2, 4)
+    v2 = sh(0, 2) + sh(4, 2)
+    dg = (sh(1, 1) + sh(1, 3)) + (sh(3, 1) + sh(3, 3))
+    e = 0.125
+    hv2 = h2 + v2
+    t_g = e * (4.0 * m + 2.0 * (h1 + v1) - hv2)
+    t_row = e * (5.0 * m + 4.0 * h1 - dg - h2 + 0.5 * v2)
+    t_col = e * (5.0 * m + 4.0 * v1 - dg - v2 + 0.5 * h2)
+    t_opp = e * (6.0 * m + 2.0 * dg - 1.5 * hv2)
+    yy = (torch.arange(h, device=x.device) & 1)[:, None]
+    xx = (torch.arange(w, device=x.device) & 1)[None, :]
+    is_r = (yy == ry) & (xx == rx)
+    is_b = (yy == 1 - ry) & (xx == 1 - rx)
+    g_r_row = (yy == ry) & (xx == 1 - rx)
+    g_b_row = (yy == 1 - ry) & (xx == rx)
+    r = torch.where(is_r, m, torch.where(g_r_row, t_row, torch.where(g_b_row, t_col, t_opp)))
+    g = torch.where(is_r | is_b, t_g, m)
+    b = torch.where(is_b, m, torch.where(g_b_row, t_row, torch.where(g_r_row, t_col, t_opp)))
+    if mat is None:
+        return torch.stack([r, g, b])
+    mt = [float(v) for v in np.asarray(mat, np.float32).reshape(9)]
+    r, g, b = (torch.clamp(q, 0.0, 1.0) for q in (r, g, b))
+    return torch.stack(
+        [
+            torch.clamp(mt[3 * c] * r + mt[3 * c + 1] * g + mt[3 * c + 2] * b, min=0.0)
+            for c in range(3)
+        ]
+    )
+
+
+def demosaic_kernel(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) -> torch.Tensor:
+    """K1 wrapper: (H, W) uint16 or float32 on the card -> (3, H, W) float32."""
+    if not kb.use_kernel(bayer):
+        return demosaic_plain(bayer, ry, rx, mat, norm)
+    kb.require(bayer, "mosaic", (torch.uint16, torch.float32))
+    if bayer.dim() != 2:
+        raise ValueError(f"mosaic: want (H, W), got {tuple(bayer.shape)}")
+    h, w = bayer.shape
+    out = torch.empty((3, h, w), dtype=torch.float32, device=bayer.device)
+    pair = _norm_pair(norm)
+    mat_arg = None
+    if mat is not None:
+        mat_arg = (ctypes.c_float * 9)(*np.asarray(mat, np.float32).reshape(9).tolist())
+    err = kb.lib().r2f_demosaic(
+        bayer.data_ptr(), int(bayer.dtype == torch.uint16), out.data_ptr(), h, w,
+        ry, rx, int(pair is not None), *(pair or (0.0, 1.0)),
+        ctypes.cast(mat_arg, ctypes.c_void_p) if mat_arg is not None else None,
+        kb.stream_ptr(bayer),
+    )
+    kb.check(err, "r2f_demosaic")
+    kb.launches["demosaic"] += 1
+    return out
+
+
+def _phase(pattern: str) -> tuple[int, int]:
+    if pattern not in PATTERNS:
+        raise ValueError(f"unsupported Bayer pattern {pattern!r}")
+    return PATTERNS[pattern]
+
+
+def demosaic_mhc(bayer: torch.Tensor, pattern: str = "RGGB", norm=None) -> torch.Tensor:
+    """(H, W) mosaic -> planar RGB (3, H, W) float32."""
+    return demosaic_kernel(bayer, *_phase(pattern), norm=norm)
+
+
+def demosaic_exposure(bayer: torch.Tensor, pattern: str, mat, norm=None) -> torch.Tensor:
+    """max(mat @ clip01(demosaic_mhc(bayer)), 0): the demosaic fused with the
+    chain's input transform (``mat`` a host 3x3). ``norm`` = (black,
+    inv_range) normalizes raw sensor codes first."""
+    return demosaic_kernel(bayer, *_phase(pattern), mat=mat, norm=norm)

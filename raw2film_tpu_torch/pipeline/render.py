@@ -1,0 +1,330 @@
+"""The render chain: CFA mosaic or camera XYZ -> uint8 film print.
+
+The counterpart of ``raw2film_tpu/pipeline/render.py`` with halation off.
+Stage order:
+
+    demosaic + input transform (K1) -> development (plain torch)
+    -> MTF sharpness + grain (K2) -> [burn small map] -> print/encode (K3)
+
+Development is plain PyTorch, as it is XLA on the TPU. Every branch whose
+TPU path needs a kernel that is not ported yet raises NotImplementedError
+naming that kernel; no stage is ever skipped silently.
+
+Planar (3, H, W) float32 at every public function; the film parameters are
+a dict of float32 tensors (:func:`make_film_bundle`), the static choices a
+:class:`RenderConfig`. The grain seed is a uint32 integer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from raw2film_tpu_torch.ops import burn as burn_ops
+from raw2film_tpu_torch.ops import demosaic as dm
+from raw2film_tpu_torch.ops import fastmath as fm
+from raw2film_tpu_torch.ops import grain as grain_ops
+from raw2film_tpu_torch.ops import mtf as mtf_ops
+from raw2film_tpu_torch.ops import print_encode as pe
+
+LOG10_EPS = 1e-6  # clip floor before log10 (raw2film_tpu.config.LOG10_EPS)
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Static configuration of one render (the JAX package's RenderConfig
+    without its TPU-only tiling fields)."""
+
+    scale: float  # pixels per mm on film
+    halation: bool = True
+    halation_size: float = 1.0
+    bw: bool = False
+    sharpness: bool = True
+    has_mtf: bool = True
+    sharpening_strength: float = 0.0
+    sharpening_sigma: float = 1.0
+    grain: int = 2
+    has_grain: bool = True
+    grain_size_mm: float = 0.006
+    grain_sigma: float = 0.4
+    highlight_burn: bool = False
+    burn_scale: float = 50.0
+    chroma_nr: int = 0
+    print_mode: str = "print"  # "print" | "inversion" | "direct"
+    shadow_comp: bool = False
+    sat_neutral: bool = True
+    gamma_func: str = "sRGB"
+    mtf_key: tuple | None = None
+    mtf_signed: bool = False
+    icc: bool = False
+    mask_identity: bool = True
+    quantize: bool = True
+
+
+def make_film_bundle(
+    neg_p,
+    prt_p,
+    out_p,
+    halation_intensity: float = 1.0,
+    halation_green_factor: float = 0.3,
+    highlight_burn: float = 0.0,
+    d_ref_green: float = 1.0,
+    grain_rms: float = 0.0,
+    grain_shape: tuple = (1.0, 1.2, 0.15, 0.0, 4.0),
+    sat: float = 1.0,
+    device=None,
+) -> dict:
+    """Pack the calibrated chain (film/chain.py parameter records) into a
+    dict of float32 tensors with the JAX bundle's keys and shapes."""
+
+    def dev(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return {
+        "m_in": dev(neg_p.m_in),
+        "flare": dev(neg_p.flare),
+        "neg_curve": tuple(dev(c) for c in neg_p.curve),
+        "mask": dev(neg_p.mask),
+        "d_min": dev(neg_p.d_min.reshape(3, 1, 1)),
+        "a": dev(prt_p.a),
+        "log_e0": dev(prt_p.log_e0.reshape(3, 1, 1)),
+        "prt_curve": tuple(dev(c) for c in prt_p.curve),
+        "v": dev(prt_p.v),
+        "d_offset": dev(prt_p.d_offset.reshape(3, 1, 1)),
+        "vd_offset": dev(prt_p.vd_offset.reshape(3, 1, 1)),
+        "shadow_comp": dev(prt_p.shadow_comp),
+        "shadow_ref": dev(prt_p.shadow_ref),
+        "to_display": dev(out_p.to_display),
+        "white_gain": dev(out_p.white_gain.reshape(3, 1, 1)),
+        "sat": dev(sat),
+        "hal_intensity": dev(halation_intensity),
+        "hal_green": dev(halation_green_factor),
+        "highlight_burn": dev(highlight_burn),
+        "d_ref_green": dev(d_ref_green),
+        "grain_rms": dev(grain_rms),
+        "grain_shape": dev(np.asarray(grain_shape, np.float32)),
+    }
+
+
+def bundle_to(bundle: dict, device) -> dict:
+    """The bundle with every tensor on ``device``."""
+    return {
+        k: tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device)
+        for k, v in bundle.items()
+    }
+
+
+def build_render_config(neg, prt, prt_mode: str, scale: float, merged: dict) -> RenderConfig:
+    """Derive the static config from merged params (pipeline.params of the
+    JAX package)."""
+    return RenderConfig(
+        scale=float(scale),
+        halation=bool(merged["halation"]),
+        halation_size=float(merged["halation_size"]),
+        bw=neg.is_bw,
+        sharpness=bool(merged["sharpness"]),
+        has_mtf=neg.mtf is not None,
+        sharpening_strength=float(merged["sharpening_strength"]),
+        sharpening_sigma=float(merged["sharpening_sigma"]),
+        grain=int(merged["grain"]),
+        has_grain=neg.rms_density is not None,
+        grain_size_mm=float(merged["grain_size"]) / 1000.0,
+        grain_sigma=float(merged["grain_sigma"]),
+        highlight_burn=bool(merged["highlight_burn"])
+        and (prt is not None or neg.density_measure in ("status_m", "bw")),
+        burn_scale=float(merged["burn_scale"]),
+        chroma_nr=int(merged["chroma_nr"]),
+        print_mode=prt_mode,
+        shadow_comp=bool(merged["shadow_comp"]),
+        sat_neutral=float(merged["sat_adjust"]) == 1.0,
+        gamma_func=str(merged["gamma_func"]),
+        mtf_key=mtf_ops._hashable_mtf(neg.mtf) if neg.mtf is not None else None,
+        mtf_signed=bool(merged.get("mtf_fidelity", False)),
+        mask_identity=neg.is_bw or float(merged["color_masking"]) == 1.0,
+    )
+
+
+def load_film_bundle(
+    negative: str = "Kodak Portra 400",
+    print_film: str = "Fuji Crystal Archive Maxima",
+    h: int = 5472,
+    w: int = 8208,
+    device=None,
+    **params,
+) -> tuple[dict, RenderConfig]:
+    """(bundle, cfg) for a negative printed on a print stock, at h x w
+    pixels on a 36 mm frame; ``params`` override the merged profile and
+    image parameters (e.g. ``halation=False, grain=2, highlight_burn=0.3``).
+    The stock data comes from the JAX package through ``_reference``."""
+    from raw2film_tpu_torch._reference import chain, loader
+    from raw2film_tpu_torch._reference import params as rparams
+
+    stocks = loader.load_film_stocks()
+    neg, prt = stocks[negative], stocks[print_film]
+    neg_p = chain.build_negative_params(neg)
+    prt_p = chain.build_print_params(neg, prt, neg_params=neg_p)
+    out_p = chain.build_output_params(neg, prt, prt_p, neg_p)
+    merged = rparams.merge_params(rparams.ProfileParams(), rparams.ImageParams())
+    merged.update(params)
+    gm = neg.grain
+    d_min, *_ = neg.curve.params()
+    bundle = make_film_bundle(
+        neg_p,
+        prt_p,
+        out_p,
+        halation_intensity=float(merged["halation_intensity"]),
+        halation_green_factor=float(merged["halation_green_factor"]),
+        highlight_burn=float(merged["highlight_burn"]),
+        d_ref_green=float(neg.d_ref[1]),
+        grain_rms=gm.rms,
+        grain_shape=(
+            gm.peak_density, gm.width, gm.floor,
+            float(np.min(d_min)), float(np.max(neg.curve.d_max)),
+        ),
+        device=device,
+    )
+    cfg = build_render_config(neg, prt, prt_p.mode, max(h, w) / 36.0, merged)
+    return bundle, cfg
+
+
+# ---------------------------------------------------------------- chain
+
+
+def _matp(m: torch.Tensor, planes):
+    """3x3 mix of three planes as scalar mul-adds (exact float32)."""
+    return tuple(m[i, 0] * planes[0] + m[i, 1] * planes[1] + m[i, 2] * planes[2] for i in range(3))
+
+
+def _hd_plane(x: torch.Tensor, curve, c: int) -> torch.Tensor:
+    d_min, gamma, x_toe, x_sh, w_t, w_s = (t.reshape(3, -1)[c, 0] for t in curve)
+    return d_min + gamma * (fm.softplus(x - x_toe, w_t) - fm.softplus(x - x_sh, w_s))
+
+
+def _unported(what: str, kernel: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs {kernel}, which is not ported yet (ROADMAP.md, queue 2)"
+    )
+
+
+def _develop(ep, bundle: dict) -> torch.Tensor:
+    """Log exposure -> status densities with masking (plain torch)."""
+    xp = tuple(fm.log10(torch.clamp(ep[c] + bundle["flare"], min=LOG10_EPS)) for c in range(3))
+    dm_ = bundle["d_min"].reshape(3, -1)
+    dp = tuple(_hd_plane(xp[c], bundle["neg_curve"], c) - dm_[c, 0] for c in range(3))
+    dp = tuple(q + dm_[c, 0] for c, q in enumerate(_matp(bundle["mask"], dp)))
+    return torch.stack(dp)
+
+
+def render_chain(
+    xyz: torch.Tensor,
+    bundle: dict,
+    cfg: RenderConfig,
+    seed: int,
+    grain_row_offset: int = 0,
+    input_is_exposure: bool = False,
+) -> torch.Tensor:
+    """(3, H, W) float32 camera XYZ (or, with ``input_is_exposure``, the
+    chain's exposure image) -> (3, H, W) uint8 encoded output."""
+    if cfg.halation:
+        raise _unported(
+            "halation",
+            "box_downsample_pallas, bilinear_upsample_rows_pallas and halation_mega (K10, K12, K14)",
+        )
+    if cfg.icc:
+        raise _unported("the ICC output LUT", "the CP-factored LUT apply (ops/lut.py)")
+    if input_is_exposure:
+        ep = (xyz[0], xyz[1], xyz[2])
+    else:
+        if cfg.chroma_nr:
+            raise _unported("chroma noise reduction", "ops/chroma_nr.py")
+        ep = tuple(torch.clamp(q, min=0.0) for q in _matp(bundle["m_in"], (xyz[0], xyz[1], xyz[2])))
+
+    d = _develop(ep, bundle)
+
+    mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
+    grain_on = bool(cfg.grain and cfg.has_grain)
+    if grain_on and not (mtf_on and cfg.grain == 2):
+        kernel = "grain_apply_bw_pallas (K9)" if cfg.grain == 1 else "grain_apply_pallas (K8)"
+        raise _unported("grain without the fused MTF epilogue", kernel)
+    if mtf_on and grain_on:
+        prm = grain_ops.grain_params(bundle["grain_rms"], bundle["grain_shape"], cfg.scale)
+        d = mtf_ops.film_sharpness_grain(
+            d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
+            grain_ops.seed2(seed, grain_row_offset),
+            grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma),
+            prm, signed=cfg.mtf_signed,
+        )
+    elif mtf_on:
+        d = mtf_ops.film_sharpness(
+            d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
+            signed=cfg.mtf_signed,
+        )
+
+    burn_args = None
+    if cfg.highlight_burn:
+        burn_args = burn_ops.burn_smallmap(d, bundle["d_ref_green"], cfg.burn_scale)
+        if burn_args is None:
+            d = burn_ops.burn(d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale)
+    return pe.print_encode(
+        d.contiguous(), pe.pack_print_vec(bundle), cfg.print_mode, cfg.shadow_comp,
+        cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize, burn=burn_args,
+    )
+
+
+def _print_tail(d: torch.Tensor, bundle: dict, cfg: RenderConfig) -> torch.Tensor:
+    """The plain tail without burn (the counterpart of the JAX package's
+    ``_print_tail``): K3's plain version on the bundle's parameters."""
+    return pe.print_encode_plain(
+        d, pe.pack_print_vec(bundle), cfg.print_mode, cfg.shadow_comp,
+        cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize,
+    )
+
+
+def fold_input_matrix(m_in, cam_to_xyz, exposure_gain=1.0) -> np.ndarray:
+    """m_in @ (gain * cam_to_xyz) in float32 on the host."""
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return np.asarray(a, np.float32)
+
+    return np.matmul(host(m_in), host(cam_to_xyz) * host(exposure_gain))
+
+
+def render_chain_from_mosaic(
+    mosaic,
+    cam_to_xyz,
+    bundle: dict,
+    cfg: RenderConfig,
+    seed: int,
+    pattern: str = "RGGB",
+    exposure_gain=1.0,
+    crop: tuple | None = None,
+    norm=None,
+    device=None,
+) -> torch.Tensor:
+    """CFA mosaic -> rendered uint8 (3, H, W): the fused demosaic (K1, with
+    the camera matrix and exposure gain folded into the chain's input
+    transform, m_in' = m_in @ (gain * cam_to_xyz)) and then the chain.
+
+    ``mosaic``: (H, W) uint16 sensor codes with ``norm`` = (black,
+    inv_range), normalized on the device, or float32 in [0, 1]. ``crop``:
+    (y0, x0, h, w) window taken after the demosaic. ``device``: where to
+    render; by default the mosaic's device (the CPU for a numpy array)."""
+    if cfg.chroma_nr != 0:
+        raise ValueError(
+            "render_chain_from_mosaic does not support chroma_nr; decode "
+            "to XYZ and use render_chain (the staged path) instead"
+        )
+    if device is None:
+        device = mosaic.device if isinstance(mosaic, torch.Tensor) else torch.device("cpu")
+    mosaic = torch.as_tensor(mosaic, device=device).contiguous()
+    b = bundle_to(bundle, device)
+    mat = fold_input_matrix(b["m_in"], cam_to_xyz, exposure_gain)
+    ep = dm.demosaic_exposure(mosaic, pattern, mat, norm=norm)
+    if crop is not None:
+        y0, x0, ch, cw = crop
+        ep = ep[:, y0 : y0 + ch, x0 : x0 + cw]
+    return render_chain(ep, b, cfg, seed, input_is_exposure=True)

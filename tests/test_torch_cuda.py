@@ -1,0 +1,69 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip without them
+(as on a CPU-only test machine). ``python3 chip_smoke.py`` runs the same
+checks, and more, at the 45 MP main path's shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.ops import demosaic as dm
+from raw2film_tpu_torch.ops import grain as grain_ops
+from raw2film_tpu_torch.ops import print_encode as pe
+from raw2film_tpu_torch.ops import sep_rank
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _plain(fn, *args):
+    with kb.plain_reference():
+        return fn(*args)
+
+
+def test_demosaic_kernel(cuda):
+    codes = torch.randint(0, 16000, (45, 67), dtype=torch.int32, device=cuda).to(torch.uint16)
+    mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
+    norm = (256.0, 1.0 / 15000.0)
+    before = kb.launches["demosaic"]
+    got = dm.demosaic_exposure(codes, "GRBG", mat, norm)
+    assert kb.launches["demosaic"] == before + 1
+    ref = _plain(dm.demosaic_exposure, codes, "GRBG", mat, norm)
+    assert (got - ref).abs().max().item() <= 2e-6
+
+
+def test_sep_rank_grain_kernel(cuda):
+    rng = np.random.default_rng(0)
+    u = rng.normal(size=(3, 4, 23)).astype(np.float32) * 0.05
+    v = rng.normal(size=(3, 4, 23)).astype(np.float32) * 0.05
+    d = torch.rand((3, 70, 130), device=cuda) * 3.0
+    grain = ((12345, 7), torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=cuda), (0.2, 0.9, 0.2))
+    got = sep_rank.fused_sep_rank(d, u, v, grain)
+    ref = _plain(sep_rank.fused_sep_rank, d, u, v, grain)
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_hash_words_kernel(cuda):
+    a, b = sep_rank.hash_words_kernel(16, 40, 8190, 5460, 2, 0xFFFFFFF0, 2**31, cuda)
+    pa, pb = grain_ops.hash_words(16, 40, 8190, 5460, 2, 0xFFFFFFF0, 2**31, device=cuda)
+    assert torch.equal(a, pa) and torch.equal(b, pb)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_print_encode_kernel(cuda, quantize):
+    d = torch.rand((3, 33, 150), device=cuda) * 3.0
+    pvec = torch.rand(61, device=cuda) * 0.5 + 0.25
+    small = torch.rand((4, 6), device=cuda)
+    rowmat = torch.rand((33, 4), device=cuda) / 4
+    colmat = torch.rand((6, 150), device=cuda) / 6
+    args = (d, pvec, "print", True, False, "Rec709", quantize, (small, rowmat, colmat))
+    got, ref = pe.print_encode(*args), _plain(pe.print_encode, *args)
+    assert (got.double() - ref.double()).abs().max().item() <= (1.0 if quantize else 1e-4)

@@ -1,0 +1,46 @@
+"""The port imports and renders in a process where JAX cannot be imported,
+and no file of it imports JAX."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "raw2film_tpu_torch"
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import raw2film_tpu_torch as r2f
+from raw2film_tpu_torch._reference import data
+bundle, cfg = r2f.load_film_bundle(
+    h=64, w=384, halation=False, grain=2, sharpness=True, highlight_burn=0.3
+)
+codes = np.random.default_rng(0).integers(600, 15000, (64, 384)).astype(np.uint16)
+out = r2f.render_chain_from_mosaic(
+    codes, data.REC709_TO_XYZ, bundle, cfg, 7, norm=(512.0, 1.0 / 15000.0)
+)
+assert out.dtype.is_floating_point is False and tuple(out.shape) == (3, 64, 384)
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+print("rendered", tuple(out.shape), float(out.float().mean()))
+"""
+
+
+def test_imports_and_renders_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    assert "rendered (3, 64, 384)" in res.stdout
+
+
+def test_no_file_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert files
+    offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
+    assert not offenders

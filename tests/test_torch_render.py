@@ -1,0 +1,128 @@
+"""The whole ported slice on the CPU against the JAX render_chain_from_mosaic
+on the CPU: same uint16 mosaic, same normalization, same grain seed, held to
+1 uint8 code. Also the branches the port does not serve yet, which must
+raise and never skip a stage."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+import raw2film_tpu  # noqa: F401
+from __graft_entry__ import _build
+from raw2film_tpu.data import REC709_TO_XYZ
+from raw2film_tpu.pipeline.render import render_chain_from_mosaic as jax_render
+from raw2film_tpu_torch import render_chain, render_chain_from_mosaic
+from raw2film_tpu_torch.convert import bundle_from_numpy, config_from_jax
+
+NORM = np.array([512.0, 1.0 / 15000.0], np.float32)
+
+
+def _codes(h, w, seed=3):
+    rng = np.random.default_rng(seed)
+    row = np.abs(rng.normal(0.35, 0.2, (1, w)))
+    col = np.abs(rng.normal(1.0, 0.3, (h, 1)))
+    tex = rng.uniform(0.6, 1.4, (h, w))
+    return np.clip(512 + 15000 * row * col * tex, 0, 65535).astype(np.uint16)
+
+
+def _numpy_bundle(jb):
+    return {k: tuple(np.asarray(a) for a in v) if isinstance(v, tuple) else np.asarray(v) for k, v in jb.items()}
+
+
+# (frame the config is built for, mosaic rendered):
+# - 448 x 672 itself: 3-tap MTF, white grain, burn factor 9 (the small map
+#   and the print kernel's burn prologue);
+# - the 45 MP config on a 256 x 384 mosaic: 23-tap MTF ranks, 3-tap grain,
+#   burn factor 6 (the staged burn).
+CASES = {"448x672": ((448, 672), (448, 672)), "45MP-cfg": ((5472, 8208), (256, 384))}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_render_matches_jax(case):
+    (bh, bw), (h, w) = CASES[case]
+    jb, jcfg = _build(bh, bw, halation=False)
+    codes = _codes(h, w)
+    key = jax.random.PRNGKey(7)
+    ref = np.asarray(
+        jax_render(
+            jnp.asarray(codes), jnp.asarray(REC709_TO_XYZ, jnp.float32), jb, jcfg, key,
+            "RGGB", 1.0, None, jnp.asarray(NORM),
+        )
+    )
+    seed = int(np.asarray(key[0] ^ key[1]))
+    got = render_chain_from_mosaic(
+        codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg), seed, norm=NORM
+    )
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (3, h, w)
+    diff = np.abs(got.numpy().astype(int) - ref.astype(int))
+    equal = float((diff == 0).mean())
+    print(f"{case}: max {diff.max()} code, {equal:.6f} of codes equal")
+    assert diff.max() <= 1
+    assert equal >= 0.999
+
+
+def test_crop_and_gain_match_jax():
+    jb, jcfg = _build(5472, 8208, halation=False)
+    codes = _codes(128, 160, seed=5)
+    key = jax.random.PRNGKey(11)
+    crop = (3, 5, 96, 120)
+    ref = np.asarray(
+        jax_render(
+            jnp.asarray(codes), jnp.asarray(REC709_TO_XYZ, jnp.float32), jb, jcfg, key,
+            "GBRG", 1.7, crop, jnp.asarray(NORM),
+        )
+    )
+    got = render_chain_from_mosaic(
+        codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg),
+        int(np.asarray(key[0] ^ key[1])), pattern="GBRG", exposure_gain=1.7, crop=crop, norm=NORM,
+    )
+    assert tuple(got.shape) == (3, 96, 120)
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+
+
+UNPORTED = {
+    "halation": dict(halation=True),
+    "grain-without-mtf": dict(sharpness=False),
+    "bw-grain": dict(grain=1),
+    "icc": dict(icc=True),
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_branches_raise(name):
+    jb, jcfg = _build(256, 384, halation=False)
+    cfg = dataclasses.replace(config_from_jax(jcfg), **UNPORTED[name])
+    with pytest.raises(NotImplementedError):
+        render_chain_from_mosaic(
+            _codes(32, 48), REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), cfg, 0, norm=NORM
+        )
+
+
+def test_chroma_nr_is_refused():
+    jb, jcfg = _build(256, 384, halation=False)
+    cfg = dataclasses.replace(config_from_jax(jcfg), chroma_nr=2)
+    bundle = bundle_from_numpy(_numpy_bundle(jb))
+    with pytest.raises(ValueError):
+        render_chain_from_mosaic(_codes(32, 48), REC709_TO_XYZ, bundle, cfg, 0, norm=NORM)
+    with pytest.raises(NotImplementedError):
+        render_chain(torch.rand(3, 32, 48), bundle, cfg, 0)
+
+
+def test_staged_render_chain_matches_jax():
+    """render_chain from camera XYZ (the input transform in plain torch)."""
+    from raw2film_tpu.pipeline.render import render_chain as jax_chain
+
+    jb, jcfg = _build(5472, 8208, halation=False)
+    xyz = np.abs(np.random.default_rng(2).normal(0.2, 0.15, (3, 96, 128))).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    ref = np.asarray(jax_chain(jnp.asarray(xyz), jb, jcfg, key))
+    got = render_chain(
+        torch.from_numpy(xyz), bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg),
+        int(np.asarray(key[0] ^ key[1])),
+    )
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
