@@ -2,7 +2,7 @@
 
 A second package beside the JAX one (``raw2film_tpu``), which stays the
 reference. The slice ported so far is the fused mosaic -> uint8 render with
-halation off: ``render_chain_from_mosaic`` runs three hand-written CUDA
+halation on or off: ``render_chain_from_mosaic`` runs six hand-written CUDA
 kernels (``csrc/``) on a CUDA device, and their plain PyTorch versions on
 the CPU. This package imports ``torch`` and never ``jax``.
 """

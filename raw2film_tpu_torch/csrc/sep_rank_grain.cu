@@ -17,25 +17,23 @@
 // memory. At 45 MP each output takes about 4 x (23 + 23) = 184 FMAs (plus
 // the halo columns of the column pass) against 8 bytes of device traffic.
 //
-// Design: one block per (channel, 32-row x 64-column tile). The block stages
-// the reflect-101 window (tile + kernel halo) in shared memory once; per
-// rank it runs the column pass into a shared buffer, then the row pass,
-// and accumulates the ranks in registers (8 outputs per thread). Taps live
-// in a small device buffer, so any tap length and rank count serve without
-// a rebuild; ranks that are all zero (the padding of a per-channel stack)
-// are skipped. The grain epilogue regenerates its noise window from the
-// hash, so no block reads a neighbour's data. Taps stay float32: the TPU's
-// bf16 "dc" tap rescale is an artifact of its matrix unit and is not
-// carried over.
-#include "common.cuh"
+// Design: one block per (channel, 32-row x 64-column tile) runs the rank
+// stage of sep_rank.cuh (shared with K14): the reflect-101 window staged in
+// shared memory once, per rank a column pass then a row pass, the ranks
+// summed in registers (8 outputs per thread). Ranks that are all zero (the
+// padding of a per-channel stack) are skipped. The grain epilogue
+// regenerates its noise window from the hash, so no block reads a
+// neighbour's data. Taps stay float32: the TPU's bf16 "dc" tap rescale is
+// an artifact of its matrix unit and is not carried over.
+#include "sep_rank.cuh"
 
 namespace {
 
-constexpr int TW = 64;   // tile width  (blockDim.x)
-constexpr int TY = 4;    // blockDim.y
-constexpr int RPT = 8;   // rows per thread
-constexpr int TH = TY * RPT;
-constexpr int NT = TW * TY;
+using r2f::sep::NT;
+using r2f::sep::RPT;
+using r2f::sep::TH;
+using r2f::sep::TW;
+using r2f::sep::TY;
 constexpr int MAX_GRAIN_TAPS = 31;
 
 struct GrainArgs {
@@ -54,10 +52,8 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ float smem[];
   const int c = blockIdx.z;
   const int cb = per_channel ? c : 0;
-  const int rv = KV / 2;
-  const int rw = KH / 2;
-  const int EW = TW + 2 * rw;  // window / column-pass width
-  const int WH = TH + 2 * rv;  // window height
+  const int EW = r2f::sep::win_w(KH);
+  const int WH = r2f::sep::win_h(KV);
   const int tk = KV + KH;
   float* tap = smem;               // R * (KV + KH)
   float* win = smem + R * tk;      // WH * EW, later the grain noise window
@@ -68,44 +64,11 @@ __global__ void __launch_bounds__(NT)
   const int y0 = blockIdx.y * TH;
   const int tid = threadIdx.y * TW + threadIdx.x;
   const size_t plane = static_cast<size_t>(H) * W;
-  const float* src = img + c * plane;
 
-  for (int i = tid; i < R * tk; i += NT) tap[i] = taps[cb * R * tk + i];
-  for (int i = tid; i < WH * EW; i += NT) {
-    const int wy = i / EW;
-    const int wx = i % EW;
-    const int gy = r2f::reflect101(y0 + wy - rv, H);
-    const int gx = r2f::reflect101(x0 + wx - rw, W);
-    win[i] = src[static_cast<size_t>(gy) * W + gx];
-  }
-  __syncthreads();
-
+  r2f::sep::stage(img + c * plane, H, W, y0, x0, KV, KH, taps + cb * R * tk, R * tk,
+                  tap, win);
   float acc[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = 0.0f;
-
-  const int nr = nrank[cb];
-  for (int r = 0; r < nr; ++r) {
-    const float* u = tap + r * tk;
-    const float* v = u + KV;
-    for (int i = tid; i < TH * EW; i += NT) {
-      const int ty = i / EW;
-      const int tx = i % EW;
-      const float* col = win + ty * EW + tx;
-      float s = u[0] * col[0];
-      for (int q = 1; q < KV; ++q) s += u[q] * col[q * EW];
-      tmp[i] = s;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const float* row = tmp + (threadIdx.y + TY * k) * EW + threadIdx.x;
-      float s = v[0] * row[0];
-      for (int q = 1; q < KH; ++q) s += v[q] * row[q];
-      acc[k] += s;
-    }
-    __syncthreads();
-  }
+  r2f::sep::rank_sum(tap, win, tmp, nrank[cb], KV, KH, acc);
 
   const int x = x0 + threadIdx.x;
   if (has_grain) {
@@ -173,8 +136,8 @@ R2F_API int r2f_sep_rank(const float* img, float* out, int C, int H, int W,
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < g.ntaps; ++i) g.taps[i] = has_grain ? grain_taps[i] : 1.0f;
 
-  const int EW = TW + 2 * (KH / 2);
-  const int WH = TH + 2 * (KV / 2);
+  const int EW = r2f::sep::win_w(KH);
+  const int WH = r2f::sep::win_h(KV);
   int region = WH * EW;
   if (has_grain) {
     const int gwin = (TH + g.ntaps - 1) * (TW + g.ntaps - 1);
@@ -183,12 +146,8 @@ R2F_API int r2f_sep_rank(const float* img, float* out, int C, int H, int W,
   const int tmp_w = has_grain && TW + g.ntaps - 1 > EW ? TW + g.ntaps - 1 : EW;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(R) * (KV + KH) + region + TH * tmp_w);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sep_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int e = r2f::sep::smem_opt_in(sep_rank_kernel, smem);
+  if (e != 0) return e;
   const dim3 block(TW, TY);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, C);
   sep_rank_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(

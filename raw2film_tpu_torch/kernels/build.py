@@ -39,7 +39,10 @@ NVCC_FLAGS = (
 
 # Launch counts of the main path's kernels: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launches = {"demosaic": 0, "sep_rank": 0, "print_encode": 0}
+launches = {
+    "demosaic": 0, "pyramid_down": 0, "sep_rank": 0, "pyramid_up_rows": 0,
+    "halation": 0, "print_encode": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +57,9 @@ _SIGNATURES = {
     "r2f_print_encode": (
         _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "r2f_box_downsample": (_P, _P, _I, _I, _I, _I, _F, _P),
+    "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "r2f_halation": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

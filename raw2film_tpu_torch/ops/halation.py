@@ -1,0 +1,277 @@
+"""Halation: the red-dominant glow around highlights.
+
+The counterpart of ``raw2film_tpu/ops/halation.py`` in its TPU form:
+``out = (img + f_c * blur(img)) / (1 + f_c)``, with ``blur`` the exponential
+halation kernel of size ``scale / 4 * halation_size`` px. By size:
+
+- ``size <= 12``: the dense kernel, as its SVD ranks through kernel K2
+  (a 1 x 1 kernel as a plain product);
+- ``12 < size <= 40``: the kernel's SVD ranks (tol 1e-4, rank <= 8) on K2;
+- above 40, the mixture tier, whole in :func:`halation_combined_fused`:
+  K10 (/4 box downsample) -> K2 (the pyramid Gaussians on the small
+  image) -> K12 (x4 row upsample) -> K14 (:func:`halation_mega`: the
+  full-res ranks, the x4 column lerp, the combine and, for identity
+  masking, the development to density).
+
+The TPU builds the glow alone of the mixture tier with the 2-D pyramid
+upsample K13 (``bilinear_upsample_pallas``), which is not ported, and so do
+its pyramid factors other than 4 and frames whose H or W is not a multiple
+of 4: those branches raise NotImplementedError naming K13.
+
+The host-side kernel construction is a numpy copy of the JAX package's
+(that module imports JAX), pinned bit-exact to it by the tests.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.ops import conv as convops
+from raw2film_tpu_torch.ops import fastmath as fm
+from raw2film_tpu_torch.ops import pyramid, sep_rank
+
+LOG10_EPS = 1e-6  # clip floor before log10 (raw2film_tpu.config.LOG10_EPS)
+PYR_F = 4  # the pyramid factor K14 serves
+DEVELOP_LEN = 19  # [flare, dmin*3, gamma*3, x_toe*3, x_shoulder*3, w_toe*3, w_shoulder*3]
+
+# ------------------------------------------------------------ host side
+
+
+def exponential_blur_kernel(size: float) -> np.ndarray:
+    """The exact halation kernel: (1/d^2) * max((r - d)/r, 0), centre weight
+    1, normalized."""
+    radius = size / 2.0
+    n = 2 * int(np.floor(np.ceil(size) / 2)) + 1
+    center = np.ceil(n / 2.0)
+    ii = np.arange(1, n + 1, dtype=np.float64)
+    di = (ii - center) ** 2
+    dist = di[:, None] + di[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = np.where(
+            dist == 0.0,
+            1.0,
+            (1.0 / dist) * np.maximum((radius - np.sqrt(dist)) / radius, 0.0),
+        )
+    return k / k.sum()
+
+
+INNER_RADIUS = 5  # dense correction window half-size (11x11)
+
+
+@lru_cache(maxsize=32)
+def fit_gaussian_mixture(size: float, n_terms: int = 5):
+    """The exact kernel as an 11 x 11 dense correction plus a least-squares
+    sum of isotropic Gaussians fitted to its tail. Returns (sigmas, weights,
+    inner (11, 11) float32, residual L1 outside the core)."""
+    k = exponential_blur_kernel(size)
+    n = k.shape[0]
+    c = n // 2
+    yy, xx = np.mgrid[0:n, 0:n]
+    r2 = (yy - c) ** 2.0 + (xx - c) ** 2.0
+    radius = max(size / 2.0, 1.0)
+    sigmas = np.geomspace(max(1.2, radius / 30.0), radius / 1.7, n_terms)
+    basis = np.stack(
+        [np.exp(-0.5 * r2 / s**2) / (2 * np.pi * s**2) for s in sigmas], axis=-1
+    )
+    a = basis.reshape(-1, n_terms)
+    outer = (r2 > INNER_RADIUS**2).ravel()
+    w, *_ = np.linalg.lstsq(a[outer], k.ravel()[outer], rcond=None)
+    w = np.maximum(w, 0.0)
+    recon = (a @ w).reshape(n, n)
+    resid_outer = float(np.abs(recon - k)[r2 > INNER_RADIUS**2].sum())
+    inner = np.zeros((2 * INNER_RADIUS + 1,) * 2, np.float64)
+    lo_src = max(c - INNER_RADIUS, 0)
+    hi_src = min(c + INNER_RADIUS + 1, n)
+    lo_dst = lo_src - (c - INNER_RADIUS)
+    patch = (k - recon)[lo_src:hi_src, lo_src:hi_src]
+    inner[lo_dst : lo_dst + patch.shape[0], lo_dst : lo_dst + patch.shape[1]] = patch
+    return (
+        tuple(float(s) for s in sigmas),
+        tuple(float(x) for x in w),
+        inner.astype(np.float32),
+        resid_outer,
+    )
+
+
+PYRAMID_SIGMA = 8.0  # sigmas above this run on a decimated level
+
+
+@lru_cache(maxsize=32)
+def _full_res_ranks(size: float):
+    """The full-res part of the mixture tier (the inner correction and the
+    sub-pyramid Gaussians combined into one 2-D kernel, SVD-factored) and
+    the pyramid (sigma, weight) terms grouped by decimation factor.
+    Returns (us, vs, by_factor), us/vs tuples of 1-D tap tuples."""
+    sigmas, weights, inner, _ = fit_gaussian_mixture(size)
+    full, by_factor = [], {}
+    for s, w in zip(sigmas, weights):
+        if w <= 1e-6:
+            continue
+        if s <= PYRAMID_SIGMA:
+            full.append((s, w))
+        else:
+            by_factor.setdefault(4 if s <= 48.0 else 8, []).append((s, w))
+    rad = INNER_RADIUS
+    for s, _ in full:
+        rad = max(rad, int(3.0 * s + 0.5))
+    n = 2 * rad + 1
+    comb = np.zeros((n, n), np.float64)
+    ir = inner.shape[0] // 2
+    comb[rad - ir : rad + ir + 1, rad - ir : rad + ir + 1] += inner
+    for s, w in full:
+        g = convops.gaussian_kernel1d(s, truncate=3.0).astype(np.float64)
+        r1 = len(g) // 2
+        comb[rad - r1 : rad + r1 + 1, rad - r1 : rad + r1 + 1] += w * np.outer(g, g)
+    u, v = convops.svd_separable(comb, tol=3e-3, max_rank=5)
+    us = tuple(tuple(float(t) for t in r_) for r_ in u)
+    vs = tuple(tuple(float(t) for t in r_) for r_ in v)
+    return us, vs, by_factor
+
+
+def pyramid_taps(f: int, terms):
+    """Column and row rank lists of the pyramid Gaussians on the /f level
+    (ragged: one rank per term, each its own length)."""
+    su = [w * convops.gaussian_kernel1d(s / f, truncate=3.0) for s, w in terms]
+    sv = [convops.gaussian_kernel1d(s / f, truncate=3.0) for s, _ in terms]
+    return su, sv
+
+
+def _needs_k13(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"halation: {what} needs bilinear_upsample_pallas (K13), which is not "
+        "ported yet (ROADMAP.md, queue 2)"
+    )
+
+
+# ------------------------------------------------------------ K14
+
+
+def _lerp_cols(rows_up: torch.Tensor, w: int) -> torch.Tensor:
+    """x4 half-pixel lerp of the column axis with edge clamp, to width w."""
+    i0, i1, w0, w1 = (
+        torch.tensor(a, device=rows_up.device)
+        for a in pyramid.lerp_taps(rows_up.shape[-1], PYR_F, w)
+    )
+    return rows_up.index_select(-1, i0) * w0 + rows_up.index_select(-1, i1) * w1
+
+
+def colour_factors(bundle: dict, bw: bool) -> torch.Tensor:
+    """(3,) per-channel glow factors from the bundle: intensity * [1,
+    green, 0], or intensity * green on every channel for black and white."""
+    g = bundle["hal_green"]
+    rgb = torch.stack([g, g, g] if bw else [torch.ones_like(g), g, torch.zeros_like(g)])
+    return bundle["hal_intensity"] * rgb
+
+
+def develop_vector(bundle: dict) -> torch.Tensor:
+    """The negative's H&D curve as K14's 19-float develop vector."""
+    return torch.cat([bundle["flare"].reshape(1)] + [c.reshape(3) for c in bundle["neg_curve"]])
+
+
+def develop_density(x: torch.Tensor, develop: torch.Tensor) -> torch.Tensor:
+    """Per-channel H&D development of (C, H, W) exposure from the 19-float
+    vector, as K14's epilogue does (identity masking)."""
+    dv = develop.reshape(DEVELOP_LEN)
+    out = []
+    for c in range(x.shape[0]):
+        flare, dmin, gam, x_t, x_s, w_t, w_s = dv[0], *(dv[1 + 3 * i + c] for i in range(6))
+        lx = fm.log10(torch.clamp(x[c] + flare, min=LOG10_EPS))
+        out.append(dmin + gam * (fm.softplus(lx - x_t, w_t) - fm.softplus(lx - x_s, w_s)))
+    return torch.stack(out)
+
+
+def halation_mega_plain(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
+    """Plain version of K14: the full-res ranks, plus the x4 column lerp of
+    ``rows_up``, combined as (img + f_c * blur) * (1 / (1 + f_c)), then
+    optionally developed to density."""
+    blur = sep_rank.fused_sep_rank_plain(img, u, v) + _lerp_cols(rows_up, img.shape[-1])
+    f = factors.reshape(-1, 1, 1)
+    out = (img + f * blur) * (1.0 / (1.0 + f))
+    return out if develop is None else develop_density(out, develop)
+
+
+def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
+    """K14 wrapper. img (C, H, W) float32 exposure; u, v shared rank lists
+    (numpy (R, k) or lists of 1-D taps); rows_up (C, H, ceil(W/4)) the
+    row-upsampled pyramid blur; factors float32 (C,) and develop float32
+    (19,) tensors on img's device. Returns the combined exposure, or with
+    ``develop`` the density."""
+    c, h, w = img.shape
+    w4 = rows_up.shape[-1]
+    if tuple(rows_up.shape) != (c, h, w4) or (w4 - 1) * PYR_F >= w or w4 * PYR_F < w:
+        raise ValueError(f"rows_up {tuple(rows_up.shape)} does not fit img {(c, h, w)} at x{PYR_F}")
+    if not kb.use_kernel(img):
+        return halation_mega_plain(img, u, v, rows_up, factors, develop)
+    kb.require(img, "img", torch.float32)
+    kb.require(rows_up, "rows_up", torch.float32)
+    kb.require(factors, "factors", torch.float32, (c,))
+    if develop is not None:
+        kb.require(develop, "develop", torch.float32, (DEVELOP_LEN,))
+    u2, v2 = sep_rank._stack(u, v)
+    if u2.shape[0] != 1:
+        raise ValueError("halation ranks: want shared (R, k) taps")
+    taps = torch.as_tensor(np.concatenate([u2[0], v2[0]], axis=1), device=img.device)
+    out = torch.empty_like(img)
+    err = kb.lib().r2f_halation(
+        img.data_ptr(), rows_up.data_ptr(), out.data_ptr(), c, h, w, w4,
+        taps.data_ptr(), u2.shape[1], u2.shape[2], v2.shape[2],
+        factors.data_ptr(), develop.data_ptr() if develop is not None else None,
+        kb.stream_ptr(img),
+    )
+    kb.check(err, "r2f_halation")
+    kb.launches["halation"] += 1
+    return out
+
+
+# ------------------------------------------------------------ the stage
+
+
+def halation_combined_fused(img, scale: float, halation_size: float, factors, develop=None):
+    """The mixture tier whole: K10 -> K2 -> K12 -> K14. Returns None below
+    it (size <= 40; the caller runs :func:`halation_blur` and the combine)."""
+    size = scale / 4.0 * halation_size
+    if size <= 40.0:
+        return None
+    h, w = img.shape[-2:]
+    if h % PYR_F or w % PYR_F:
+        raise _needs_k13(f"a {h}x{w} frame (H and W must be multiples of {PYR_F})")
+    us, vs, by_factor = _full_res_ranks(size)
+    if list(by_factor) != [PYR_F]:
+        raise _needs_k13(f"pyramid factors {sorted(by_factor)} at size {size}")
+    small = pyramid.box_downsample_pyramid(img, PYR_F)
+    small_blur = sep_rank.fused_sep_rank(small, *pyramid_taps(PYR_F, by_factor[PYR_F]))
+    rows_up = pyramid.bilinear_upsample_rows(small_blur, PYR_F, oh=h)
+    return halation_mega(img, us, vs, rows_up, factors, develop)
+
+
+def halation_blur(img, scale: float, halation_size: float) -> torch.Tensor:
+    """The glow term alone, for the tiers below the mixture tier."""
+    size = scale / 4.0 * halation_size
+    if size <= 12.0:
+        k = exponential_blur_kernel(size).astype(np.float32)
+        if min(k.shape) >= 3:
+            return sep_rank.fused_sep_rank(img, *convops.svd_separable(k, tol=1e-4, max_rank=6))
+        return img * float(k[0, 0])  # size <= 1: the kernel is 1 x 1
+    if size <= 40.0:
+        u, v = convops.svd_separable(
+            exponential_blur_kernel(size).astype(np.float32), tol=1e-4, max_rank=8
+        )
+        return sep_rank.fused_sep_rank(img, u, v)
+    raise _needs_k13(f"the glow alone of the mixture tier (size {size})")
+
+
+def halation_with_factors(img, scale: float, halation_size: float, factors) -> torch.Tensor:
+    """Halation with per-channel colour factors held as a tensor of 3, so
+    slider values never rebuild anything; only (scale, halation_size) shape
+    the kernels."""
+    factors = torch.as_tensor(factors, dtype=torch.float32, device=img.device).reshape(-1)
+    combined = halation_combined_fused(img, scale, halation_size, factors)
+    if combined is not None:
+        return combined
+    blur = halation_blur(img, scale, halation_size)
+    f = factors.reshape(-1, 1, 1)
+    return (img + f * blur) / (1.0 + f)

@@ -1,0 +1,124 @@
+"""Pyramid resampling of the halation glow: the /f box downsample (K10) and
+the row-only half-pixel bilinear upsample (K12).
+
+The counterpart of ``raw2film_tpu/ops/pallas_pyramid.py``:
+
+- :func:`box_downsample_pyramid` replaces ``box_downsample_pallas`` (K10):
+  (C, H, W) -> (C, H//f, W//f) block mean for any integer f, the remainder
+  cropped; each output sums its f x f block rows first, then columns (the
+  order of ``Dh @ x @ Dw``), then scales by float32(1 / f**2);
+- :func:`bilinear_upsample_rows` replaces ``bilinear_upsample_rows_pallas``
+  (K12): x f half-pixel lerp of the row axis only, edge clamp, cropped to
+  ``oh`` rows; the columns are untouched.
+
+On a CUDA tensor each launches its kernel (``csrc/pyramid.cu``); on a CPU
+tensor it runs its plain version.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.ops.conv import _lerp_matrix_full
+
+
+@lru_cache(maxsize=32)
+def lerp_taps(n_in: int, f: int, n_out: int):
+    """Half-pixel x f lerp with edge clamp as two taps per output:
+    (i0, i1) int64 and (w0, w1) float32 numpy arrays of length ``n_out``,
+    out[o] = w0[o] * x[i0[o]] + w1[o] * x[i1[o]]. Where the clamp folds both
+    taps onto one sample, w0 holds their float32 sum and w1 is 0, as in the
+    rows of ``_lerp_matrix_full(n_in, f)`` and in the edge-chunk matrices of
+    the TPU halation kernel (cached, read-only)."""
+    o = np.arange(n_out, dtype=np.float64)
+    rel = (o + 0.5) / f - 0.5
+    base = np.floor(rel)
+    frac = rel - base
+    i0 = np.clip(base, 0, n_in - 1).astype(np.int64)
+    i1 = np.clip(base + 1, 0, n_in - 1).astype(np.int64)
+    w0 = (1.0 - frac).astype(np.float32)
+    w1 = frac.astype(np.float32)
+    same = i0 == i1
+    w0[same] = w0[same] + w1[same]
+    w1[same] = 0.0
+    for a in (i0, i1, w0, w1):
+        a.setflags(write=False)
+    return i0, i1, w0, w1
+
+
+# ------------------------------------------------------------------ K10
+
+
+def box_downsample_plain(img: torch.Tensor, f: int) -> torch.Tensor:
+    """Plain version of K10: reshape to (C, h2, f, w2, f), sum the row
+    axis, then the column axis, then scale."""
+    c, h, w = img.shape
+    f = int(f)
+    h2, w2 = h // f, w // f
+    x = img[:, : h2 * f, : w2 * f].reshape(c, h2, f, w2, f)
+    return x.sum(dim=2).sum(dim=-1) * float(np.float32(1.0 / (f * f)))
+
+
+def box_downsample_pyramid(img: torch.Tensor, f: int) -> torch.Tensor:
+    """K10 wrapper: (C, H, W) float32 -> (C, H//f, W//f) block mean."""
+    f = int(f)
+    if f < 1:
+        raise ValueError(f"box downsample: factor {f}")
+    if not kb.use_kernel(img):
+        return box_downsample_plain(img, f)
+    kb.require(img, "img", torch.float32)
+    if img.dim() != 3:
+        raise ValueError(f"img: want (C, H, W), got {tuple(img.shape)}")
+    c, h, w = img.shape
+    h2, w2 = h // f, w // f
+    if h2 == 0 or w2 == 0:
+        raise ValueError(f"box downsample: {h}x{w} is smaller than the factor {f}")
+    out = torch.empty((c, h2, w2), dtype=torch.float32, device=img.device)
+    err = kb.lib().r2f_box_downsample(
+        img.data_ptr(), out.data_ptr(), c, h, w, f, float(np.float32(1.0 / (f * f))),
+        kb.stream_ptr(img),
+    )
+    kb.check(err, "r2f_box_downsample")
+    kb.launches["pyramid_down"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ K12
+
+
+def bilinear_upsample_rows_plain(img: torch.Tensor, f: int, oh: int | None = None) -> torch.Tensor:
+    """Plain version of K12: the row lerp as one float32 matmul with
+    ``_lerp_matrix_full(h, f)[:oh]`` (TF32 must be off, see
+    ``device.disable_tf32``)."""
+    hs = img.shape[-2]
+    oh = hs * int(f) if oh is None else int(oh)
+    uh = torch.tensor(_lerp_matrix_full(hs, int(f))[:oh], device=img.device)
+    return torch.matmul(uh, img)
+
+
+def bilinear_upsample_rows(img: torch.Tensor, f: int, oh: int | None = None) -> torch.Tensor:
+    """K12 wrapper: (C, h, w) float32 -> (C, oh, w), oh <= h * f."""
+    f = int(f)
+    if f < 1:
+        raise ValueError(f"row upsample: factor {f}")
+    hs = img.shape[-2]
+    oh = hs * f if oh is None else int(oh)
+    if not 0 < oh <= hs * f:
+        raise ValueError(f"row upsample: oh {oh} outside (0, {hs * f}]")
+    if not kb.use_kernel(img):
+        return bilinear_upsample_rows_plain(img, f, oh)
+    kb.require(img, "img", torch.float32)
+    if img.dim() != 3:
+        raise ValueError(f"img: want (C, h, w), got {tuple(img.shape)}")
+    c, _, w = img.shape
+    out = torch.empty((c, oh, w), dtype=torch.float32, device=img.device)
+    err = kb.lib().r2f_upsample_rows(
+        img.data_ptr(), out.data_ptr(), c, hs, w, f, oh, kb.stream_ptr(img)
+    )
+    kb.check(err, "r2f_upsample_rows")
+    kb.launches["pyramid_up_rows"] += 1
+    return out

@@ -25,10 +25,24 @@ from raw2film_tpu_torch.ops.conv import conv1d_axis
 MAX_GRAIN_TAPS = 31
 
 
+def _ranks(taps) -> np.ndarray:
+    """An (R, k) or (C, R, k) array as float32; a list of shared 1-D rank
+    rows of any odd lengths as (R, k), each shorter row zero-padded
+    symmetrically to the longest. The centre stays put and a zero tap adds
+    an exact 0, so the padding leaves the result unchanged."""
+    if isinstance(taps, np.ndarray) or np.ndim(taps[0]) != 1:
+        return np.asarray(taps, np.float32)
+    rows = [np.asarray(r, np.float32).ravel() for r in taps]
+    if any(len(r) % 2 == 0 for r in rows):
+        raise ValueError("taps: lengths must be odd")
+    n = max(len(r) for r in rows)
+    return np.stack([np.pad(r, (n - len(r)) // 2) for r in rows])
+
+
 def _stack(u, v):
     """(Cb, R, k) float32 column and row tap stacks; Cb = 1 when shared."""
-    u = np.asarray(u, np.float32)
-    v = np.asarray(v, np.float32)
+    u = _ranks(u)
+    v = _ranks(v)
     if u.ndim == 2:
         u, v = u[None], v[None]
     if u.ndim != 3 or v.ndim != 3 or u.shape[:2] != v.shape[:2]:
@@ -57,7 +71,8 @@ def fused_sep_rank_plain(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
 
 def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     """K2 wrapper. img (C, H, W) float32; u, v numpy (R, k) shared or
-    (C, R, k) per channel; grain = ((seed, row_off), prm, taps) or None."""
+    (C, R, k) per channel, or lists of shared rank rows of odd, possibly
+    different lengths; grain = ((seed, row_off), prm, taps) or None."""
     if not kb.use_kernel(img):
         return fused_sep_rank_plain(img, u, v, grain)
     kb.require(img, "img", torch.float32)

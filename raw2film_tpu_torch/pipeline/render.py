@@ -1,14 +1,16 @@
 """The render chain: CFA mosaic or camera XYZ -> uint8 film print.
 
-The counterpart of ``raw2film_tpu/pipeline/render.py`` with halation off.
-Stage order:
+The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
 
-    demosaic + input transform (K1) -> development (plain torch)
+    demosaic + input transform (K1)
+    -> [halation: /4 box downsample (K10) -> small blur (K2)
+        -> x4 row upsample (K12) -> ranks + lerp + combine (K14)]
+    -> development (in K14's epilogue with identity masking, else plain torch)
     -> MTF sharpness + grain (K2) -> [burn small map] -> print/encode (K3)
 
-Development is plain PyTorch, as it is XLA on the TPU. Every branch whose
-TPU path needs a kernel that is not ported yet raises NotImplementedError
-naming that kernel; no stage is ever skipped silently.
+The plain development is PyTorch, as it is XLA on the TPU. Every branch
+whose TPU path needs a kernel that is not ported yet raises
+NotImplementedError naming that kernel; no stage is ever skipped silently.
 
 Planar (3, H, W) float32 at every public function; the film parameters are
 a dict of float32 tensors (:func:`make_film_bundle`), the static choices a
@@ -26,6 +28,7 @@ from raw2film_tpu_torch.ops import burn as burn_ops
 from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import grain as grain_ops
+from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
 
@@ -208,8 +211,8 @@ def _unported(what: str, kernel: str) -> NotImplementedError:
     )
 
 
-def _develop(ep, bundle: dict) -> torch.Tensor:
-    """Log exposure -> status densities with masking (plain torch)."""
+def _develop(ep: torch.Tensor, bundle: dict) -> torch.Tensor:
+    """(3, H, W) exposure -> status densities with masking (plain torch)."""
     xp = tuple(fm.log10(torch.clamp(ep[c] + bundle["flare"], min=LOG10_EPS)) for c in range(3))
     dm_ = bundle["d_min"].reshape(3, -1)
     dp = tuple(_hd_plane(xp[c], bundle["neg_curve"], c) - dm_[c, 0] for c in range(3))
@@ -227,21 +230,37 @@ def render_chain(
 ) -> torch.Tensor:
     """(3, H, W) float32 camera XYZ (or, with ``input_is_exposure``, the
     chain's exposure image) -> (3, H, W) uint8 encoded output."""
-    if cfg.halation:
-        raise _unported(
-            "halation",
-            "box_downsample_pallas, bilinear_upsample_rows_pallas and halation_mega (K10, K12, K14)",
-        )
     if cfg.icc:
         raise _unported("the ICC output LUT", "the CP-factored LUT apply (ops/lut.py)")
     if input_is_exposure:
-        ep = (xyz[0], xyz[1], xyz[2])
+        ep = xyz.contiguous()  # a cropped exposure image is a strided view
     else:
         if cfg.chroma_nr:
             raise _unported("chroma noise reduction", "ops/chroma_nr.py")
-        ep = tuple(torch.clamp(q, min=0.0) for q in _matp(bundle["m_in"], (xyz[0], xyz[1], xyz[2])))
+        ep = torch.stack(
+            [torch.clamp(q, min=0.0) for q in _matp(bundle["m_in"], (xyz[0], xyz[1], xyz[2]))]
+        )
 
-    d = _develop(ep, bundle)
+    d = None
+    if cfg.halation:
+        factors = hal_ops.colour_factors(bundle, cfg.bw)
+        # With identity masking (the default) K14 also develops to density,
+        # so the exposure image never returns to memory.
+        devvec = hal_ops.develop_vector(bundle) if cfg.mask_identity else None
+        combined = hal_ops.halation_combined_fused(
+            ep, cfg.scale, cfg.halation_size, factors, develop=devvec
+        )
+        if combined is None:  # below the mixture tier: glow, then the combine
+            blur = hal_ops.halation_blur(ep, cfg.scale, cfg.halation_size)
+            f = factors.reshape(3, 1, 1)
+            ep = (ep + f * blur) / (1.0 + f)
+        elif devvec is not None:
+            d = combined  # developed in K14
+        else:
+            ep = combined
+
+    if d is None:
+        d = _develop(ep, bundle)
 
     mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
     grain_on = bool(cfg.grain and cfg.has_grain)

@@ -11,7 +11,9 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.ops import grain as grain_ops
+from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops import print_encode as pe
+from raw2film_tpu_torch.ops import pyramid
 from raw2film_tpu_torch.ops import sep_rank
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +29,13 @@ def cuda():
 def _plain(fn, *args):
     with kb.plain_reference():
         return fn(*args)
+
+
+def _launched(name, fn, *args):
+    before = kb.launches[name]
+    out = fn(*args)
+    assert kb.launches[name] == before + 1
+    return out
 
 
 def test_demosaic_kernel(cuda):
@@ -67,3 +76,37 @@ def test_print_encode_kernel(cuda, quantize):
     args = (d, pvec, "print", True, False, "Rec709", quantize, (small, rowmat, colmat))
     got, ref = pe.print_encode(*args), _plain(pe.print_encode, *args)
     assert (got.double() - ref.double()).abs().max().item() <= (1.0 if quantize else 1e-4)
+
+
+@pytest.mark.parametrize("shape,f", [((3, 38, 55), 4), ((2, 37, 53), 3)])
+def test_box_downsample_kernel(cuda, shape, f):
+    x = torch.rand(shape, device=cuda) * 3.0
+    got = _launched("pyramid_down", pyramid.box_downsample_pyramid, x, f)
+    assert (got - _plain(pyramid.box_downsample_pyramid, x, f)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("f,oh", [(4, 41), (4, None), (3, 20)])
+def test_upsample_rows_kernel(cuda, f, oh):
+    x = torch.rand((3, 11, 29), device=cuda) * 3.0
+    got = _launched("pyramid_up_rows", pyramid.bilinear_upsample_rows, x, f, oh)
+    assert (got - _plain(pyramid.bilinear_upsample_rows, x, f, oh)).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("develop", [False, True], ids=["exposure", "density"])
+def test_halation_kernel(cuda, develop):
+    """The 45 MP config's ranks (4 x 27 taps) on a frame whose W is not a
+    multiple of 4 (the lerp's edge clamp on a short last column)."""
+    us, vs, _ = hal_ops._full_res_ranks(57.0)
+    img = torch.rand((3, 45, 70), device=cuda) * 2.0
+    rows_up = torch.rand((3, 45, 18), device=cuda) * 0.5
+    fac = torch.tensor([1.0, 0.3, 0.0], device=cuda)
+    dv = None
+    if develop:
+        dv = torch.tensor(
+            [0.01, 0.2, 0.25, 0.3, 0.6, 0.62, 0.58, -2.0, -2.1, -1.9, 1.0, 1.1, 0.9,
+             0.3, 0.32, 0.28, 0.5, 0.45, 0.55], device=cuda,
+        )
+    args = (img, us, vs, rows_up, fac, dv)
+    got = _launched("halation", hal_ops.halation_mega, *args)
+    tol = 2e-5 if develop else 1e-5
+    assert (got - _plain(hal_ops.halation_mega, *args)).abs().max().item() <= tol

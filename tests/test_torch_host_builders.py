@@ -123,3 +123,50 @@ def test_pack_print_vec_layout():
     assert got.dtype == torch.float32 and got.shape == (61,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jpack(jb)))
     assert got[60] == np.float32(0.7) and got[59] == np.float32(0.8)
+
+
+# Halation sizes: the 45 MP frame (57, 4 x 27 full-res taps, a /4 pyramid of
+# two terms), the 24 MP frame (41.67, 4 x 43 taps, one pyramid term), and
+# the two tiers below the mixture (20, 8).
+HALATION_SIZES = [57.0, 41.67, 20.0, 8.0]
+
+
+@pytest.mark.parametrize("size", HALATION_SIZES)
+def test_halation_host_kernels(size):
+    from raw2film_tpu.ops import halation as jhal
+    from raw2film_tpu_torch.ops import halation as thal
+
+    assert (thal.INNER_RADIUS, thal.PYRAMID_SIGMA) == (jhal.INNER_RADIUS, jhal.PYRAMID_SIGMA)
+    np.testing.assert_array_equal(thal.exponential_blur_kernel(size), jhal.exponential_blur_kernel(size))
+    got, want = thal.fit_gaussian_mixture(size), jhal.fit_gaussian_mixture(size)
+    assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
+    np.testing.assert_array_equal(got[2], want[2])
+    assert thal._full_res_ranks(size) == jhal._full_res_ranks(size)
+    us, vs, by_factor = thal._full_res_ranks(size)
+    for f, terms in by_factor.items():
+        su, sv = thal.pyramid_taps(f, terms)
+        # the list _pyramid_small_blur hands fused_sep_rank_mxu
+        want_u = [w * jconv.gaussian_kernel1d(s / f, truncate=3.0) for s, w in terms]
+        want_v = [jconv.gaussian_kernel1d(s / f, truncate=3.0) for s, _ in terms]
+        for a, b in zip(su + sv, want_u + want_v):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    if size == 57.0:
+        assert [len(u) for u in us] == [27] * 4 and list(by_factor) == [4]
+        assert [len(u) for u in thal.pyramid_taps(4, by_factor[4])[0]] == [15, 27]
+    if size == 41.67:
+        assert [len(u) for u in us] == [43] * 4 and len(by_factor[4]) == 1
+
+
+def test_config_from_jax_carries_halation():
+    """The benchmark config with halation on (the defaults of _build and
+    load_film_bundle), and the halation fields of a changed JAX config."""
+    import dataclasses
+
+    jb, jcfg = _build(5472, 8208)
+    tb, tcfg = load_film_bundle(grain=2, sharpness=True, highlight_burn=0.3)
+    _assert_bundles_equal(tb, jb)
+    assert tcfg == convert.config_from_jax(jcfg)
+    assert (tcfg.halation, tcfg.halation_size, tcfg.bw) == (True, 1.0, False)
+    other = convert.config_from_jax(dataclasses.replace(jcfg, halation_size=1.7, bw=True))
+    assert (other.halation, other.halation_size, other.bw) == (True, 1.7, True)

@@ -24,6 +24,13 @@ out = r2f.render_chain_from_mosaic(
     codes, data.REC709_TO_XYZ, bundle, cfg, 7, norm=(512.0, 1.0 / 15000.0)
 )
 assert out.dtype.is_floating_point is False and tuple(out.shape) == (3, 64, 384)
+# halation on, with the 45 MP frame's mixture tier (K10 -> K2 -> K12 -> K14)
+bundle, cfg = r2f.load_film_bundle(grain=2, sharpness=True, highlight_burn=0.3)
+assert cfg.halation and cfg.scale / 4.0 * cfg.halation_size > 40.0
+hal = r2f.render_chain_from_mosaic(
+    codes, data.REC709_TO_XYZ, bundle, cfg, 7, norm=(512.0, 1.0 / 15000.0)
+)
+assert tuple(hal.shape) == (3, 64, 384)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("rendered", tuple(out.shape), float(out.float().mean()))
 """
