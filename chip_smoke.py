@@ -13,10 +13,20 @@
    every kernel of the path launched in that render, and holds the output
    to the same render with the plain versions on the card (within 1 uint8
    code); then the same with halation off;
-5. times both renders and each kernel against its plain version with CUDA
-   events, profiles the halation-on render's device time by kernel, and
-   prints one JSON line of per-kernel results;
-6. prints {"ok": true, "device": {...}} as its last line.
+5. writes the same mosaic as an uncompressed 5472x8208 DNG to a temporary
+   directory and renders it with ``Processor(device="cuda").process()`` in
+   six phases, each with its launch counts checked exactly and its output
+   held to a plain-version Processor within 1 code: (a) the CLI defaults
+   (half-size decode K11, the SVD halation tier on K2, K2 MTF + grain, K3),
+   (b) full res (the fused path), (c) sharpness off (grain on K8), (d) grain
+   1 (K9), (e) halation size 3.0 at full res (the /4 and /8 pyramid levels,
+   K13 twice), (f) full res on a 36 x 23.9 frame, whose H is not a multiple
+   of 4 (the bilinear resize, neither K13 nor K14);
+6. times the renders, (a) and (b) end to end and stage by stage, and each
+   kernel against its plain version with CUDA events, profiles the
+   halation-on render's device time by kernel, and prints one JSON line of
+   per-kernel results;
+7. prints {"ok": true, "device": {...}} as its last line.
 
 Any failed check ends the script with a traceback and a non-zero exit.
 """
@@ -24,17 +34,21 @@ Any failed check ends the script with a traceback and a non-zero exit.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from raw2film_tpu_torch import load_film_bundle, render_chain_from_mosaic
+from raw2film_tpu_torch import Processor, load_film_bundle, render_chain, render_chain_from_mosaic
 from raw2film_tpu_torch._reference import data as ref_data
+from raw2film_tpu_torch._reference import dng, geometry
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
+from raw2film_tpu_torch.io import raw as traw
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import burn as burn_ops
 from raw2film_tpu_torch.ops import demosaic as dm
@@ -44,6 +58,8 @@ from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
 from raw2film_tpu_torch.ops import pyramid
 from raw2film_tpu_torch.ops import sep_rank
+from raw2film_tpu_torch.pipeline import processor as tproc
+from raw2film_tpu_torch.pipeline.render import build_render_config
 
 H, W = 5472, 8208
 SEED = 20261016
@@ -53,29 +69,57 @@ SEED = 20261016
 # amplify the last-ulp differences of exp2f and FMA contraction.
 # The pyramid resamples sum or lerp a few float32 values (a few ulp of
 # values below 4); halation is held to 1e-5 on exposure and 2e-5 on density
-# (the develop epilogue's log2/exp2 chain).
+# (the develop epilogue's log2/exp2 chain); the half-size decode selects and
+# averages two values, bit for bit; the grain applies as K2's epilogue.
 TOL = {
     "demosaic": 2e-6, "sep_rank": 1e-5, "print_encode": 1.0, "print_encode_float": 1e-4,
     "pyramid_down": 1e-6, "pyramid_up_rows": 2e-6, "halation": 1e-5, "halation_density": 2e-5,
+    "half_size": 0.0, "pyramid_up": 2e-6, "grain_apply": 1e-5, "grain_apply_bw": 1e-5,
 }
 KERNELS = {
     "demosaic": ("raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_demosaic.py:191"),
+    "half_size": ("raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_pyramid.py:205"),
     "pyramid_down": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:65"),
     "sep_rank": ("raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:576"),
     "pyramid_up_rows": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:277"),
+    "pyramid_up": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:374"),
     "halation": ("raw2film_tpu_torch/csrc/halation.cu", "raw2film_tpu/ops/pallas_halation.py:239"),
+    "grain_apply": ("raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:306"),
+    "grain_apply_bw": ("raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:405"),
     "print_encode": ("raw2film_tpu_torch/csrc/print_encode.cu", "raw2film_tpu/ops/pallas_print.py:164"),
 }
+
+
+def counts(**nonzero) -> dict:
+    """A full launch-count dict: the given kernels, every other one 0."""
+    return {k: nonzero.get(k, 0) for k in kb.launches}
+
+
 # Launches of each kernel in one 45 MP render: with halation, K2 runs twice
 # (the /4 small blur and the MTF + grain).
-LAUNCHES_ON = {
-    "demosaic": 1, "pyramid_down": 1, "sep_rank": 2, "pyramid_up_rows": 1,
-    "halation": 1, "print_encode": 1,
+LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, pyramid_up_rows=1, halation=1, print_encode=1)
+LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, print_encode=1)
+# Processor.process() of the DNG: (overrides of the benchmark settings,
+# launches per render, output shape).
+HALF = (H // 2, W // 2, 3)
+PHASES = {
+    "a": ({}, counts(half_size=1, sep_rank=2, print_encode=1), HALF),
+    "b": (dict(half_size=False, max_scale=None), LAUNCHES_ON, (H, W, 3)),
+    "c": (dict(sharpness=False), counts(half_size=1, sep_rank=1, grain_apply=1, print_encode=1), HALF),
+    "d": (dict(grain=1), counts(half_size=1, sep_rank=2, grain_apply_bw=1, print_encode=1), HALF),
+    "e": (
+        dict(half_size=False, max_scale=None, halation_size=3.0),
+        counts(demosaic=1, pyramid_down=2, sep_rank=4, pyramid_up=2, print_encode=1),
+        (H, W, 3),
+    ),
+    "f": (
+        dict(half_size=False, max_scale=None, frame_height=23.9),
+        counts(demosaic=1, pyramid_down=1, sep_rank=3, print_encode=1),
+        (5449, 8207, 3),
+    ),
 }
-LAUNCHES_OFF = {
-    "demosaic": 1, "pyramid_down": 0, "sep_rank": 1, "pyramid_up_rows": 0,
-    "halation": 0, "print_encode": 1,
-}
+STOCKS = dict(negative_film="Kodak Portra 400", print_film="Fuji Crystal Archive Maxima")
+SETTINGS = dict(STOCKS, grain=2, sharpness=True, highlight_burn=0.3, seed=SEED)
 H24, W24 = 4000, 6000  # a 24 MP frame: 43-tap halation ranks
 
 
@@ -313,6 +357,71 @@ def check_halation(device, bundle, cfg) -> dict:
     return result
 
 
+def check_half_size(device, full_hw) -> dict:
+    g = torch.Generator(device=device).manual_seed(9)
+    for pattern in dm.PATTERNS:
+        codes = mosaic_codes(37, 53, 4, device)
+        expect("half_size", max_err(dm.half_size_decode(codes, pattern, NORM),
+                                    plain(dm.half_size_decode, codes, pattern, NORM)),
+               TOL["half_size"], f"u16+norm 37x53 {pattern}")
+        f = torch.rand((37, 53), generator=g, device=device)
+        expect("half_size", max_err(dm.half_size_decode(f, pattern), plain(dm.half_size_decode, f, pattern)),
+               TOL["half_size"], f"f32 37x53 {pattern}")
+    codes = mosaic_codes(*full_hw, 3, device)
+    err = max_err(dm.half_size_decode(codes, "RGGB", NORM), plain(dm.half_size_decode, codes, "RGGB", NORM))
+    expect("half_size", err, TOL["half_size"], f"u16+norm {full_hw[0]}x{full_hw[1]}")
+    ms = cuda_ms(lambda: dm.half_size_decode(codes, "RGGB", NORM), 20)
+    plain_ms = cuda_ms(lambda: plain(dm.half_size_decode, codes, "RGGB", NORM), 5)
+    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms)}
+
+
+def check_upsample(device, full_hw) -> dict:
+    """Small ragged crops, then the /4 and /8 levels of the 45 MP frame back
+    to full size (phase e's shapes); the /8 level is the one reported."""
+    g = torch.Generator(device=device).manual_seed(10)
+    for shape, f, out_hw in (((3, 11, 29), 4, (41, 115)), ((2, 7, 9), 8, (50, 70)), ((1, 5, 6), 3, None)):
+        x = torch.rand(shape, generator=g, device=device) * 3.0
+        expect("pyramid_up", max_err(pyramid.bilinear_upsample(x, f, out_hw),
+                                     plain(pyramid.bilinear_upsample, x, f, out_hw)),
+               TOL["pyramid_up"], f"f={f} {shape} -> {out_hw}")
+    result = None
+    for f in (4, 8):
+        s_ = torch.rand((3, full_hw[0] // f, full_hw[1] // f), generator=g, device=device)
+        err = max_err(pyramid.bilinear_upsample(s_, f, full_hw), plain(pyramid.bilinear_upsample, s_, f, full_hw))
+        expect("pyramid_up", err, TOL["pyramid_up"], f"f={f} {tuple(s_.shape)} -> {full_hw}")
+        ms = statistics.median(cuda_ms(lambda: pyramid.bilinear_upsample(s_, f, full_hw), 20))
+        plain_ms = statistics.median(cuda_ms(lambda: plain(pyramid.bilinear_upsample, s_, f, full_hw), 5))
+        print(f"  pyramid_up f={f} {tuple(s_.shape)} -> {full_hw}: {ms!r} ms vs plain {plain_ms!r} ms")
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return result
+
+
+def check_grain_apply(device, full_hw, cfg) -> tuple[dict, dict]:
+    """Small ragged frames with 3 and 13 taps, the half-size frame with its
+    white-noise grain (phases c and d), then the 45 MP frame with its 3 taps."""
+    prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=device)
+    seed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
+    g = torch.Generator(device=device).manual_seed(11)
+    sigma = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
+    half_sigma = grain_ops.correlation_sigma_px(cfg.scale / 2, cfg.grain_size_mm, cfg.grain_sigma)
+    out = {}
+    for bw, name in ((False, "grain_apply"), (True, "grain_apply_bw")):
+        for shape, sg in (((3, 45, 71), sigma), ((3, 45, 71), 2.3), ((3, full_hw[0] // 2, full_hw[1] // 2), half_sigma)):
+            d = torch.rand(shape, generator=g, device=device) * 3.0
+            args = (d, seed, sg, prm, bw)
+            expect(name, max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args)),
+                   TOL[name], f"{len(grain_ops.grain_corr_taps(sg))} taps {shape}")
+        d = torch.rand((3, *full_hw), generator=g, device=device) * 3.0
+        args = (d, seed, sigma, prm, bw)
+        err = max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args))
+        expect(name, err, TOL[name], f"{len(grain_ops.grain_corr_taps(sigma))} taps 3x{full_hw[0]}x{full_hw[1]}")
+        ms = statistics.median(cuda_ms(lambda: grain_ops.grain_apply(*args), 20))
+        plain_ms = statistics.median(cuda_ms(lambda: plain(grain_ops.grain_apply, *args), 3))
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del d, args
+    return out["grain_apply"], out["grain_apply_bw"]
+
+
 # ------------------------------------------------------------ main path
 
 
@@ -404,6 +513,120 @@ def profile(render, label: str, n: int = 3) -> None:
         print(f"  {t / n / 1e3:9.4f} ms/render  x{count // n:<3d} {key[:90]}")
 
 
+# ------------------------------------------------------------ Processor
+
+
+def write_dng(path: str, device) -> None:
+    """The seeded mosaic as an uncompressed 16-bit RGGB DNG."""
+    codes = mosaic_codes(H, W, SEED, device).cpu().numpy()
+    dng.write_dng(path, codes, black_level=512, white_level=24000)
+
+
+def processor_phase(device, path: str, name: str) -> dict:
+    """One checked process() of the DNG: exact launch counts, the output
+    against a Processor on the plain versions within 1 code."""
+    overrides, want, shape = PHASES[name]
+    kw = dict(SETTINGS, **overrides)
+    label = f"process ({name}) {overrides or 'CLI defaults'}"
+    proc = Processor(device=device)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    out = proc.process(path, cache=False, **kw)
+    torch.cuda.synchronize()
+    launches = dict(kb.launches)
+    print(f"{label}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if out.dtype != np.uint8 or out.shape != shape:
+        raise AssertionError(f"{label}: output {out.dtype} {out.shape}, want {shape}")
+    ref = plain(Processor(device=device).process, path, cache=False, **kw)
+    diff = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+    worst, equal, mean = int(diff.max()), float((diff == 0).mean()), float(out.mean())
+    print(f"{label} vs plain versions: max {worst} code, {equal!r} of codes equal, output mean {mean!r}")
+    if worst > 1:
+        raise AssertionError(f"{label} differs from the plain path by {worst} codes")
+    if not 10.0 < mean < 245.0:
+        raise AssertionError(f"{label}: implausible output mean {mean}")
+    return launches
+
+
+def host_ms(fn, sync: bool = True) -> tuple[object, float]:
+    """(fn(), host ms), with a device synchronize before the clock stops."""
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def timed_render(fn) -> tuple[float, float]:
+    """(device ms between CUDA events around the render, host ms of the
+    render plus the download of its uint8 output)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    out.cpu()
+    return a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def time_processor(device, path: str, card: str) -> dict:
+    """(a) and (b) end to end (host clock around process(), which ends with
+    the download of the uint8 image), then stage by stage: the host read of
+    the DNG, (a) upload + device decode, the exposure fetch and the geometry
+    round trip through the host, (b) the host exposure estimate and crop,
+    and the render with CUDA events around its device part."""
+    proc = Processor(device=device)
+    result = {}
+    for name in ("a", "b"):
+        kw = dict(SETTINGS, **PHASES[name][0])
+        proc.process(path, cache=False, **kw)  # warm-up
+        wall = [host_ms(lambda: proc.process(path, cache=False, **kw), sync=False)[1] for _ in range(5)]
+        print(f"process ({name}) end to end on {card}: median {statistics.median(wall)!r} ms, all {wall!r}")
+        result[name] = {"process_ms": statistics.median(wall), "all_ms": wall}
+
+    neg, prt = tproc._resolve_stock(STOCKS["negative_film"]), tproc._resolve_stock(STOCKS["print_film"])
+    merged = dict(tproc._MERGED_DEFAULTS, grain=2, sharpness=True, highlight_burn=0.3)
+    bundle, mode = proc.load_film_bundle(neg, prt, merged)
+    cfg_a = build_render_config(neg, prt, mode, (W // 2) / 36.0, merged)
+    cfg_b = build_render_config(neg, prt, mode, W / 36.0, merged)
+    fused_kw = dict(half_size=False, max_scale=None, lens_correction=True)
+    stages = {"a": {}, "b": {}}
+
+    def add(name, key, value):
+        stages[name].setdefault(key, []).append(value)
+
+    for _ in range(3):
+        raw, t = host_ms(lambda: dng.read_raw(path), sync=False)
+        add("a", "read_raw", t)
+        add("b", "read_raw", t)
+        xyz, t = host_ms(lambda: traw.decode_raw(raw, half_size=True, device=device))
+        add("a", "upload_decode", t)
+        _, t = host_ms(lambda: xyz[1, ::2, ::2].cpu().numpy(), sync=False)
+        add("a", "exposure_fetch", t)
+        staged, t = host_ms(lambda: torch.as_tensor(
+            geometry.crop_rotate_zoom(xyz.cpu().numpy(), 36.0, 24.0, 0.0, 1.0, 0, False), device=device))
+        add("a", "geometry_round_trip", t)
+        dev, host = timed_render(lambda: render_chain(staged, bundle, cfg_a, SEED))
+        add("a", "render_device", dev)
+        add("a", "render_and_download", host)
+        (fast, _), t = host_ms(lambda: proc._try_load_mosaic_impl(raw, fused_kw), sync=False)
+        add("b", "host_exposure_and_crop", t)
+        mosaic, norm, pattern, cam, gain, crop = fast
+        dev, host = timed_render(lambda: render_chain_from_mosaic(
+            mosaic, cam, bundle, cfg_b, SEED, pattern, gain, crop, norm, device=device))
+        add("b", "upload_and_render_device", dev)
+        add("b", "render_and_download", host)
+        del xyz, staged
+    for name in ("a", "b"):
+        med = {k: statistics.median(v) for k, v in stages[name].items()}
+        print(f"process ({name}) stages on {card}, median of 3 (ms): {med!r}")
+        result[name]["stages_ms"] = med
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -435,6 +658,9 @@ def main() -> int:
     }
     results["pyramid_down"], results["pyramid_up_rows"] = check_pyramid(device, (H, W))
     results["halation"] = check_halation(device, bundle, cfg)
+    results["half_size"] = check_half_size(device, (H, W))
+    results["pyramid_up"] = check_upsample(device, (H, W))
+    results["grain_apply"], results["grain_apply_bw"] = check_grain_apply(device, (H, W), cfg)
     torch.cuda.empty_cache()
 
     codes = mosaic_codes(H, W, SEED, device)
@@ -444,9 +670,26 @@ def main() -> int:
     profile(render, "halation-on main path")
     del render
     torch.cuda.empty_cache()
-    _, timing_off, _ = main_path(
+    launches_off, timing_off, _ = main_path(
         device, codes, bundle_off, cfg_off, card, LAUNCHES_OFF, "halation-off path"
     )
+    del codes
+    torch.cuda.empty_cache()
+
+    total = {k: launches[k] + launches_off[k] for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame.dng")
+        t0 = time.perf_counter()
+        write_dng(path, device)
+        print(f"wrote {os.path.getsize(path)} bytes of DNG in {time.perf_counter() - t0!r} s")
+        for name in PHASES:
+            for k, v in processor_phase(device, path, name).items():
+                total[k] += v
+            torch.cuda.empty_cache()
+        process_timing = time_processor(device, path, card)
+    for name, n in total.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was launched no time on the main paths")
     for name, r in results.items():
         print(f"kernel {name} on {card}: {r['ms']!r} ms vs plain {r['plain_ms']!r} ms")
 
@@ -456,13 +699,14 @@ def main() -> int:
             "route": "cuda",
             "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
-            "launches": launches[name],
+            "launches": total[name],
             **results[name],
         }
         for name in KERNELS
     ]
     print(json.dumps({
-        "kernels": kernels, "main_path": timing, "halation_off": timing_off, "card": card,
+        "kernels": kernels, "main_path": timing, "halation_off": timing_off,
+        "process": process_timing, "card": card,
     }))
     print(card_line())
     print(json.dumps({

@@ -1,4 +1,5 @@
-// K1: Malvar-He-Cutler demosaic with the input-transform epilogue.
+// K1: Malvar-He-Cutler demosaic with the input-transform epilogue, and
+// K11: the half-size decode.
 //
 // Replaces raw2film_tpu/ops/pallas_demosaic.py::demosaic_mhc_pallas (the
 // TPU kernel _demosaic_kernel), with the u16 normalize of
@@ -15,6 +16,16 @@
 // interpolants use the grouped pair sums of the TPU kernel, so float32
 // rounding tracks the reference. With a matrix, the epilogue writes
 // max(M . clip01(rgb), 0) and the RGB image never reaches memory.
+//
+// K11 half_size replaces raw2film_tpu/ops/pallas_pyramid.py::
+// half_size_decode_pallas: each 2x2 Bayer cell gives one RGB pixel,
+//   r = x[2i + ry][2j + rx], b = x[2i + 1 - ry][2j + 1 - rx],
+//   g = 0.5 (x[2i + ry][2j + 1 - rx] + x[2i + 1 - ry][2j + rx]),
+// with an odd last row or column dropped. The TPU kernel selects the phases
+// with 0/1 matmuls (the image split into exact bf16 halves) and declines
+// small frames; here each thread reads its cell by index and every shape is
+// served. The same u16 normalize prologue as K1. Bound: device memory, 2
+// bytes read (u16) and 3 bytes written per mosaic pixel.
 #include "common.cuh"
 
 namespace {
@@ -103,7 +114,46 @@ __global__ void __launch_bounds__(TW* TH)
   }
 }
 
+template <typename T>
+__global__ void half_size_kernel(const T* __restrict__ mosaic, float* __restrict__ out,
+                                 int W, int h2, int w2, int ry, int rx, int norm,
+                                 float black, float inv_range) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= w2 || i >= h2) return;
+  const size_t row_r = static_cast<size_t>(2 * i + ry) * W;
+  const size_t row_b = static_cast<size_t>(2 * i + 1 - ry) * W;
+  const float r = load_px(mosaic, row_r + 2 * j + rx, norm, black, inv_range);
+  const float ga = load_px(mosaic, row_r + 2 * j + 1 - rx, norm, black, inv_range);
+  const float gb = load_px(mosaic, row_b + 2 * j + rx, norm, black, inv_range);
+  const float b = load_px(mosaic, row_b + 2 * j + 1 - rx, norm, black, inv_range);
+  const size_t plane = static_cast<size_t>(h2) * w2;
+  const size_t o = static_cast<size_t>(i) * w2 + j;
+  out[o] = r;
+  out[plane + o] = 0.5f * (ga + gb);
+  out[2 * plane + o] = b;
+}
+
 }  // namespace
+
+// mosaic: (H, W) uint16 (is_u16=1) or float32; out: (3, H/2, W/2) float32.
+R2F_API int r2f_half_size(const void* mosaic, int is_u16, float* out, int H, int W,
+                          int ry, int rx, int norm, float black, float inv_range,
+                          void* stream) {
+  const int h2 = H / 2;
+  const int w2 = W / 2;
+  const dim3 block(32, 8);
+  const dim3 grid((w2 + 31) / 32, (h2 + 7) / 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_u16) {
+    half_size_kernel<uint16_t><<<grid, block, 0, s>>>(
+        static_cast<const uint16_t*>(mosaic), out, W, h2, w2, ry, rx, norm, black, inv_range);
+  } else {
+    half_size_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(mosaic), out, W, h2, w2, ry, rx, norm, black, inv_range);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // mosaic: (H, W) uint16 (is_u16=1) or float32; out: (3, H, W) float32.
 // mat: 9 host floats, row-major, or null for the plain RGB output.

@@ -1,4 +1,4 @@
-// K10 and K12: the pyramid resamples of the halation glow.
+// K10, K12 and K13: the pyramid resamples of the halation glow.
 //
 // K10 box_downsample replaces raw2film_tpu/ops/pallas_pyramid.py::
 // box_downsample_pallas: (C, H, W) -> (C, H/f, W/f) block mean for any
@@ -16,11 +16,19 @@
 // float32, as the host builds the TPU kernel's lerp matrix. For f = 4 the
 // weights are exact: 0.125, 0.375, 0.625, 0.875.
 //
-// Bound on the H100: device memory, both. At 45 MP K10 reads 540 MB and
+// K13 upsample replaces pallas_pyramid.py::bilinear_upsample_pallas: the
+// 2-D x f half-pixel lerp with edge clamp, cropped to (oh, ow), for any
+// integer f. The TPU runs it as Uh @ window @ Uw with lerp band matrices per
+// chunk; here each output lerps the rows first, then the two row results
+// along the columns (the order of Uh @ win @ Uw), with the K12 weights on
+// both axes.
+//
+// Bound on the H100: device memory, all three. At 45 MP K10 reads 540 MB and
 // writes 34 MB; K12 reads 34 MB (each input row serves 2f output rows, from
 // L2) and writes 135 MB. One thread per output, consecutive threads on
 // consecutive output columns, so every warp's loads are one contiguous run
-// of each input row.
+// of each input row. K13 reads 1/f^2 of what it writes (from L2) and writes
+// 540 MB at 45 MP.
 #include "common.cuh"
 
 namespace {
@@ -64,7 +72,50 @@ __global__ void upsample_rows_kernel(const float* __restrict__ img,
       w0 * src[static_cast<size_t>(r0) * w] + w1 * src[static_cast<size_t>(r1) * w];
 }
 
+// Half-pixel x f lerp taps of output o on a length-n input axis, clamped.
+__device__ __forceinline__ void lerp_tap(int o, int f, int n, int& i0, int& i1, float& w0,
+                                         float& w1) {
+  const int m = o % f;
+  const double rel = (m + 0.5) / f - 0.5;
+  const double base = floor(rel);
+  const double frac = rel - base;
+  const int b = o / f + static_cast<int>(base);
+  i0 = min(max(b, 0), n - 1);
+  i1 = min(max(b + 1, 0), n - 1);
+  w0 = static_cast<float>(1.0 - frac);
+  w1 = static_cast<float>(frac);
+}
+
+__global__ void upsample_kernel(const float* __restrict__ img, float* __restrict__ out,
+                                int h, int w, int f, int oh, int ow) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int c = blockIdx.z;
+  if (x >= ow || y >= oh) return;
+  int r0, r1, c0, c1;
+  float wr0, wr1, wc0, wc1;
+  lerp_tap(y, f, h, r0, r1, wr0, wr1);
+  lerp_tap(x, f, w, c0, c1, wc0, wc1);
+  const float* src = img + static_cast<size_t>(c) * h * w;
+  const float* a = src + static_cast<size_t>(r0) * w;
+  const float* b = src + static_cast<size_t>(r1) * w;
+  const float t0 = wr0 * a[c0] + wr1 * b[c0];
+  const float t1 = wr0 * a[c1] + wr1 * b[c1];
+  out[(static_cast<size_t>(c) * oh + y) * ow + x] = wc0 * t0 + wc1 * t1;
+}
+
 }  // namespace
+
+// img: (C, h, w) float32; out: (C, oh, ow) float32, oh <= h f, ow <= w f.
+R2F_API int r2f_upsample(const float* img, float* out, int C, int h, int w, int f,
+                         int oh, int ow, void* stream) {
+  if (f < 1 || oh > h * f || ow > w * f) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(64, 4);
+  const dim3 grid((ow + 63) / 64, (oh + 3) / 4, C);
+  upsample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, out, h, w, f, oh, ow);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // img: (C, H, W) float32; out: (C, H/f, W/f) float32; inv = float32(1/f^2).
 R2F_API int r2f_box_downsample(const float* img, float* out, int C, int H, int W,

@@ -22,9 +22,11 @@
 // shared memory once, per rank a column pass then a row pass, the ranks
 // summed in registers (8 outputs per thread). Ranks that are all zero (the
 // padding of a per-channel stack) are skipped. The grain epilogue
-// regenerates its noise window from the hash, so no block reads a
-// neighbour's data. Taps stay float32: the TPU's bf16 "dc" tap rescale is
-// an artifact of its matrix unit and is not carried over.
+// (grain.cuh, shared with K8 and K9) regenerates its noise window from the
+// hash, so no block reads a neighbour's data. Taps stay float32: the TPU's
+// bf16 "dc" tap rescale is an artifact of its matrix unit and is not
+// carried over.
+#include "grain.cuh"
 #include "sep_rank.cuh"
 
 namespace {
@@ -34,21 +36,13 @@ using r2f::sep::RPT;
 using r2f::sep::TH;
 using r2f::sep::TW;
 using r2f::sep::TY;
-constexpr int MAX_GRAIN_TAPS = 31;
-
-struct GrainArgs {
-  uint32_t seed;
-  uint32_t row_off;
-  int ntaps;
-  float taps[MAX_GRAIN_TAPS];
-};
 
 __global__ void __launch_bounds__(NT)
     sep_rank_kernel(const float* __restrict__ img, float* __restrict__ out,
                     int H, int W, const float* __restrict__ taps,
                     const int* __restrict__ nrank, int per_channel, int R,
                     int KV, int KH, int has_grain,
-                    const float* __restrict__ prm, GrainArgs g) {
+                    const float* __restrict__ prm, r2f::grain::Args g) {
   extern __shared__ float smem[];
   const int c = blockIdx.z;
   const int cb = per_channel ? c : 0;
@@ -57,7 +51,8 @@ __global__ void __launch_bounds__(NT)
   const int tk = KV + KH;
   float* tap = smem;               // R * (KV + KH)
   float* win = smem + R * tk;      // WH * EW, later the grain noise window
-  float* tmp = win + (has_grain ? max(WH * EW, (TH + g.ntaps - 1) * (TW + g.ntaps - 1))
+  float* tmp = win + (has_grain ? max(WH * EW, r2f::grain::win_h(TH, g.ntaps) *
+                                                    r2f::grain::win_w(TW, g.ntaps))
                                 : WH * EW);  // TH * EW column-pass rows
 
   const int x0 = blockIdx.x * TW;
@@ -72,38 +67,13 @@ __global__ void __launch_bounds__(NT)
 
   const int x = x0 + threadIdx.x;
   if (has_grain) {
-    const int nt = g.ntaps;
-    const int GW = TW + nt - 1;
-    const int GH = TH + nt - 1;
-    const uint32_t z = r2f::grain_z(c, g.seed);
-    for (int i = tid; i < GH * GW; i += NT) {
-      const int wy = i / GW;
-      const int wx = i % GW;
-      uint32_t a, b;
-      r2f::pcg3d(static_cast<uint32_t>(x0 + wx),
-                 static_cast<uint32_t>(y0 + wy) + g.row_off, z, a, b);
-      win[i] = r2f::grain_normal(a, b);
-    }
-    __syncthreads();
-    for (int i = tid; i < TH * GW; i += NT) {
-      const float* col = win + i;
-      float s = g.taps[0] * col[0];
-      for (int q = 1; q < nt; ++q) s += g.taps[q] * col[q * GW];
-      tmp[i] = s;
-    }
-    __syncthreads();
-    const float rms_eff = prm[0], floor_ = prm[1], peak_half = prm[2];
-    const float inv_width = prm[3], lo = prm[4], inv_rng = prm[5];
+    r2f::grain::column_field(win, tmp, x0, y0, TH, TW, r2f::grain_z(c, g.seed), g, tid, NT);
+    const r2f::grain::Amp p = r2f::grain::load_amp(prm);
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
-      const float* row = tmp + (threadIdx.y + TY * k) * GW + threadIdx.x;
-      float field = g.taps[0] * row[0];
-      for (int q = 1; q < nt; ++q) field += g.taps[q] * row[q];
+      const float field = r2f::grain::row_field(tmp, threadIdx.y + TY * k, threadIdx.x, TW, g);
       const float d = acc[k];
-      const float t = (d - lo) * inv_rng;
-      const float e = (t - peak_half - 0.25f) * inv_width;
-      const float shape = floor_ + (1.0f - floor_) * r2f::expe(-0.5f * (e * e));
-      acc[k] = fmaxf(d + rms_eff * shape * field, 0.0f);
+      acc[k] = fmaxf(d + p.rms_eff * r2f::grain::shape(d, p) * field, 0.0f);
     }
   }
 
@@ -128,22 +98,21 @@ R2F_API int r2f_sep_rank(const float* img, float* out, int C, int H, int W,
                          unsigned int seed, unsigned int row_off,
                          const float* prm, const float* grain_taps,
                          int n_grain_taps, void* stream) {
-  GrainArgs g{};
-  g.seed = seed;
-  g.row_off = row_off;
-  g.ntaps = has_grain ? n_grain_taps : 1;
-  if (has_grain && (n_grain_taps < 1 || n_grain_taps > MAX_GRAIN_TAPS))
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int i = 0; i < g.ntaps; ++i) g.taps[i] = has_grain ? grain_taps[i] : 1.0f;
+  r2f::grain::Args g{};
+  const float one = 1.0f;
+  const int e_args = has_grain ? r2f::grain::make_args(g, seed, row_off, grain_taps, n_grain_taps)
+                               : r2f::grain::make_args(g, 0u, 0u, &one, 1);
+  if (e_args != 0) return e_args;
 
   const int EW = r2f::sep::win_w(KH);
   const int WH = r2f::sep::win_h(KV);
   int region = WH * EW;
   if (has_grain) {
-    const int gwin = (TH + g.ntaps - 1) * (TW + g.ntaps - 1);
+    const int gwin = r2f::grain::win_h(TH, g.ntaps) * r2f::grain::win_w(TW, g.ntaps);
     region = region > gwin ? region : gwin;
   }
-  const int tmp_w = has_grain && TW + g.ntaps - 1 > EW ? TW + g.ntaps - 1 : EW;
+  const int gw = r2f::grain::win_w(TW, g.ntaps);
+  const int tmp_w = has_grain && gw > EW ? gw : EW;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(R) * (KV + KH) + region + TH * tmp_w);
   const int e = r2f::sep::smem_opt_in(sep_rank_kernel, smem);

@@ -40,8 +40,9 @@ NVCC_FLAGS = (
 # Launch counts of the main path's kernels: each wrapper adds one where it
 # launches its kernel, and nowhere else.
 launches = {
-    "demosaic": 0, "pyramid_down": 0, "sep_rank": 0, "pyramid_up_rows": 0,
-    "halation": 0, "print_encode": 0,
+    "demosaic": 0, "half_size": 0, "pyramid_down": 0, "sep_rank": 0,
+    "pyramid_up_rows": 0, "pyramid_up": 0, "halation": 0, "grain_apply": 0,
+    "grain_apply_bw": 0, "print_encode": 0,
 }
 
 _P = ctypes.c_void_p
@@ -50,6 +51,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "r2f_half_size": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "r2f_sep_rank": (
         _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P,
     ),
@@ -59,6 +61,8 @@ _SIGNATURES = {
     ),
     "r2f_box_downsample": (_P, _P, _I, _I, _I, _I, _F, _P),
     "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "r2f_grain_apply": (_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P),
     "r2f_halation": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 

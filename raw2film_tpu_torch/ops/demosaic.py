@@ -1,10 +1,17 @@
-"""Bayer demosaic: Malvar-He-Cutler 5x5, with the input transform fused.
+"""Demosaic: Malvar-He-Cutler 5x5 with the input transform fused, the
+half-size decode, and the masked X-Trans decode.
 
-The counterpart of ``raw2film_tpu/ops/demosaic.py::demosaic_mhc`` and
-``demosaic_exposure``. On a CUDA tensor both launch kernel K1
-(``csrc/demosaic.cu``, the port of ``pallas_demosaic.demosaic_mhc_pallas``);
-on a CPU tensor they run :func:`demosaic_plain`, which mirrors that kernel's
-arithmetic (the grouped pair sums) in plain PyTorch.
+The counterpart of ``raw2film_tpu/ops/demosaic.py``:
+
+- ``demosaic_mhc`` and ``demosaic_exposure`` launch kernel K1 on a CUDA
+  tensor (``csrc/demosaic.cu``, the port of
+  ``pallas_demosaic.demosaic_mhc_pallas``); on a CPU tensor they run
+  :func:`demosaic_plain`, which mirrors that kernel's arithmetic (the
+  grouped pair sums) in plain PyTorch;
+- :func:`half_size_decode` launches K11 (``csrc/demosaic.cu``, the port of
+  ``pallas_pyramid.half_size_decode_pallas``), or :func:`half_size_plain`;
+- :func:`demosaic_masked`, the X-Trans decode, runs its depthwise convs as
+  SVD ranks on K2, as ``depthwise_conv2d`` does on the TPU.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
-from raw2film_tpu_torch.ops.conv import pad_reflect
+from raw2film_tpu_torch.ops import sep_rank
+from raw2film_tpu_torch.ops.conv import pad_reflect, svd_separable
 
 PATTERNS = {
     "RGGB": (0, 0),
@@ -126,3 +134,78 @@ def demosaic_exposure(bayer: torch.Tensor, pattern: str, mat, norm=None) -> torc
     chain's input transform (``mat`` a host 3x3). ``norm`` = (black,
     inv_range) normalizes raw sensor codes first."""
     return demosaic_kernel(bayer, *_phase(pattern), mat=mat, norm=norm)
+
+
+# ------------------------------------------------------------ K11
+
+
+def half_size_plain(bayer: torch.Tensor, ry: int, rx: int, norm=None) -> torch.Tensor:
+    """Plain version of K11: strided slices of the (normalized) mosaic, the
+    greens averaged as 0.5 * (a + b); an odd last row or column is dropped."""
+    x = normalize(bayer, norm) if norm is not None else bayer.to(torch.float32)
+    h2, w2 = x.shape[0] // 2, x.shape[1] // 2
+    x = x[: h2 * 2, : w2 * 2]
+    r = x[ry::2, rx::2]
+    b = x[1 - ry :: 2, 1 - rx :: 2]
+    g = 0.5 * (x[ry::2, 1 - rx :: 2] + x[1 - ry :: 2, rx::2])
+    return torch.stack([r, g, b])
+
+
+def half_size_decode(bayer: torch.Tensor, pattern: str = "RGGB", norm=None) -> torch.Tensor:
+    """K11 wrapper: (H, W) uint16 or float32 mosaic -> (3, H//2, W//2)
+    float32, each 2x2 Bayer cell one RGB pixel. ``norm`` = (black,
+    inv_range) normalizes raw sensor codes first, as in K1."""
+    ry, rx = _phase(pattern)
+    if bayer.dim() != 2 or bayer.shape[0] < 2 or bayer.shape[1] < 2:
+        raise ValueError(f"mosaic: want (H, W) with H, W >= 2, got {tuple(bayer.shape)}")
+    if not kb.use_kernel(bayer):
+        return half_size_plain(bayer, ry, rx, norm)
+    kb.require(bayer, "mosaic", (torch.uint16, torch.float32))
+    h, w = bayer.shape
+    out = torch.empty((3, h // 2, w // 2), dtype=torch.float32, device=bayer.device)
+    pair = _norm_pair(norm)
+    err = kb.lib().r2f_half_size(
+        bayer.data_ptr(), int(bayer.dtype == torch.uint16), out.data_ptr(), h, w, ry, rx,
+        int(pair is not None), *(pair or (0.0, 1.0)), kb.stream_ptr(bayer),
+    )
+    kb.check(err, "r2f_half_size")
+    kb.launches["half_size"] += 1
+    return out
+
+
+# ------------------------------------------------------------ X-Trans
+
+
+def _depthwise(img: torch.Tensor, k2d: np.ndarray) -> torch.Tensor:
+    """A shared 2-D kernel as its SVD ranks on K2 (tol 1e-4, rank <= 6), as
+    ``depthwise_conv2d`` runs on the TPU."""
+    return sep_rank.fused_sep_rank(img.contiguous(), *svd_separable(k2d, tol=1e-4, max_rank=6))
+
+
+def demosaic_masked(mosaic: torch.Tensor, pattern: str, tile_h: int, tile_w: int) -> torch.Tensor:
+    """Masked demosaic for any CFA tiling (the X-Trans 6x6 decode): the green
+    plane by normalized 3x3-triangle interpolation over the G sites, then
+    R and B from the interpolated colour differences (5x5 triangle), each
+    measured value kept at its own site. (H, W) float32 -> (3, H, W)."""
+    h, w = mosaic.shape
+    code = {"R": 0, "G": 1, "B": 2}
+    grid = np.array([code[c] for c in pattern], np.int32).reshape(tile_h, tile_w)
+    full = np.tile(grid, (-(-h // tile_h), -(-w // tile_w)))[:h, :w]
+    masks = torch.as_tensor(
+        np.stack([(full == c) for c in range(3)]).astype(np.float32), device=mosaic.device
+    )
+    t3 = np.array([1.0, 2.0, 1.0], np.float32)
+    t5 = np.array([1.0, 2.0, 3.0, 2.0, 1.0], np.float32)
+    k3, k5 = np.outer(t3, t3), np.outer(t5, t5)
+
+    gm = masks[1:2]
+    g_num = _depthwise(mosaic[None] * gm, k3)
+    g_den = _depthwise(gm, k3)
+    g = torch.where(gm[0] > 0.5, mosaic, (g_num / torch.clamp(g_den, min=1e-8))[0])
+
+    rb_masks = torch.stack([masks[0], masks[2]])
+    diff = (mosaic - g)[None] * rb_masks
+    d = _depthwise(diff, k5) / torch.clamp(_depthwise(rb_masks, k5), min=1e-8)
+    r = torch.where(rb_masks[0] > 0.5, mosaic, g + d[0])
+    b = torch.where(rb_masks[1] > 0.5, mosaic, g + d[1])
+    return torch.stack([r, g, b])

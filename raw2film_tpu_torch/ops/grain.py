@@ -1,12 +1,17 @@
-"""Film grain: positionally stateless hash noise, its correlation, and the
-density-dependent amplitude.
+"""Film grain: positionally stateless hash noise, its correlation, the
+density-dependent amplitude, and the grain apply without the MTF.
 
 The counterpart of the grain parts of ``raw2film_tpu/ops/grain.py`` and
 ``raw2film_tpu/ops/pallas_grain.py``. The noise at image position (x, y) of
 channel c is a pure function of (x, y + row_off, c * 0x9E3779B9 + seed)
 through PCG-3D and a popcount binomial, so any tiling reproduces the same
-field, and the kernel's epilogue (``csrc/sep_rank_grain.cu``) matches
-:func:`grain_field_hash` here.
+field, and the kernels' grain code (``csrc/grain.cuh``, in K2's epilogue and
+in K8 and K9) matches :func:`grain_field_hash` here.
+
+:func:`grain_apply` is K8 (colour grain, ``grain_apply_pallas``) and, with
+``bw=True``, K9 (one field shared by the channels and the channel-mean
+amplitude, ``grain_apply_bw_pallas``); on a CUDA tensor it launches
+``csrc/grain.cu``, on a CPU tensor it runs :func:`grain_apply_plain`.
 
 The grain seed is an explicit uint32 integer; a JAX ``noise_key`` maps to
 ``seed = key[0] ^ key[1]``.
@@ -18,14 +23,19 @@ on signed-overflow wrap.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
+MAX_TAPS = 31  # the kernels' limit on correlation taps (csrc/grain.cuh)
+THIRD = float(np.float32(1.0 / 3.0))
 
 
 def correlation_sigma_px(scale: float, grain_size_mm: float, grain_sigma: float) -> float:
@@ -102,9 +112,11 @@ def grain_noise(h: int, w: int, x0: int, y0: int, ch: int, seed: int,
 
 
 def grain_field_hash(seed: int, hw: tuple, taps, row_off: int = 0,
-                     device=None) -> torch.Tensor:
-    """(3, H, W) correlated unit-variance field, the plain counterpart of
-    ``raw2film_tpu/ops/pallas_grain.py::grain_field_hash``.
+                     device=None, channels: int = 3) -> torch.Tensor:
+    """(channels, H, W) correlated unit-variance field, the plain
+    counterpart of ``raw2film_tpu/ops/pallas_grain.py::grain_field_hash``
+    (channel c salted with c * 0x9E3779B9; the black-and-white grain uses
+    channel 0 alone).
 
     The window of output (y, x) starts at (y, x): it is not centred. One
     channel at a time, which bounds the int64 temporaries."""
@@ -112,7 +124,7 @@ def grain_field_hash(seed: int, hw: tuple, taps, row_off: int = 0,
     taps = [float(np.float32(t)) for t in taps]
     n = len(taps)
     out = []
-    for ch in range(3):
+    for ch in range(channels):
         noise = grain_noise(h + n - 1, w + n - 1, 0, 0, ch, seed, row_off, device)
         col = None
         for q in range(n):
@@ -142,11 +154,60 @@ def grain_params(grain_rms, grain_shape, scale: float) -> torch.Tensor:
     )
 
 
-def grain_amplitude(d: torch.Tensor, prm: torch.Tensor) -> torch.Tensor:
-    """rms_eff * (floor + (1 - floor) * exp(-0.5 ((t - peak_half - 1/4) *
-    inv_width)^2)), t = (d - lo) * inv_rng."""
-    rms_eff, floor, peak_half, inv_width, lo, inv_rng = (prm[i] for i in range(6))
+def grain_shape(d: torch.Tensor, prm: torch.Tensor) -> torch.Tensor:
+    """floor + (1 - floor) * exp(-0.5 ((t - peak_half - 1/4) * inv_width)^2),
+    t = (d - lo) * inv_rng: the amplitude without rms_eff."""
+    _, floor, peak_half, inv_width, lo, inv_rng = (prm[i] for i in range(6))
     t = (d - lo) * inv_rng
     e = (t - peak_half - 0.25) * inv_width
-    shape = floor + (1.0 - floor) * fm.expe(-0.5 * (e * e))
-    return rms_eff * shape
+    return floor + (1.0 - floor) * fm.expe(-0.5 * (e * e))
+
+
+def grain_amplitude(d: torch.Tensor, prm: torch.Tensor) -> torch.Tensor:
+    """rms_eff * grain_shape(d)."""
+    return prm[0] * grain_shape(d, prm)
+
+
+# ------------------------------------------------------------ K8, K9
+
+
+def grain_apply_plain(d: torch.Tensor, seed: tuple[int, int], taps, prm: torch.Tensor,
+                      bw: bool = False) -> torch.Tensor:
+    """Plain version of K8 (``bw=False``) and K9 (``bw=True``)."""
+    s, row_off = seed
+    if not bw:
+        field = grain_field_hash(s, d.shape[-2:], taps, row_off, d.device)
+        return torch.clamp(d + grain_amplitude(d, prm) * field, min=0.0)
+    field = grain_field_hash(s, d.shape[-2:], taps, row_off, d.device, channels=1)[0]
+    amp = prm[0] * THIRD * (grain_shape(d[0], prm) + grain_shape(d[1], prm) + grain_shape(d[2], prm))
+    return torch.clamp(d + amp * field, min=0.0)
+
+
+def grain_apply(d: torch.Tensor, seed: tuple[int, int], sigma_px: float, prm: torch.Tensor,
+                bw: bool = False) -> torch.Tensor:
+    """K8 / K9 wrapper: max(d + amp(d) * field, 0) on a (C, H, W) float32
+    density image (K9: C = 3). ``seed`` is the (seed, row_off) pair of
+    :func:`seed2`; ``prm`` the six amplitude floats of :func:`grain_params`."""
+    taps = grain_corr_taps(float(sigma_px))
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"grain: {len(taps)} taps, the kernels take {MAX_TAPS}")
+    if bw and d.shape[0] != 3:
+        raise ValueError(f"black-and-white grain: want 3 channels, got {tuple(d.shape)}")
+    if not kb.use_kernel(d):
+        return grain_apply_plain(d, seed, taps, prm, bw)
+    kb.require(d, "density", torch.float32)
+    if d.dim() != 3:
+        raise ValueError(f"density: want (C, H, W), got {tuple(d.shape)}")
+    prm = prm.to(device=d.device, dtype=torch.float32).contiguous()
+    kb.require(prm, "grain prm", torch.float32, (6,))
+    c, h, w = d.shape
+    s, row_off = seed2(*seed)
+    out = torch.empty_like(d)
+    ctaps = (ctypes.c_float * len(taps))(*taps)
+    err = kb.lib().r2f_grain_apply(
+        d.data_ptr(), out.data_ptr(), c, h, w, int(bw), s, row_off, prm.data_ptr(),
+        ctypes.cast(ctaps, ctypes.c_void_p), len(taps), kb.stream_ptr(d),
+    )
+    kb.check(err, "r2f_grain_apply")
+    kb.launches["grain_apply_bw" if bw else "grain_apply"] += 1
+    return out

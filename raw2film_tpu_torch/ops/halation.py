@@ -7,16 +7,18 @@ halation kernel of size ``scale / 4 * halation_size`` px. By size:
 - ``size <= 12``: the dense kernel, as its SVD ranks through kernel K2
   (a 1 x 1 kernel as a plain product);
 - ``12 < size <= 40``: the kernel's SVD ranks (tol 1e-4, rank <= 8) on K2;
-- above 40, the mixture tier, whole in :func:`halation_combined_fused`:
-  K10 (/4 box downsample) -> K2 (the pyramid Gaussians on the small
-  image) -> K12 (x4 row upsample) -> K14 (:func:`halation_mega`: the
-  full-res ranks, the x4 column lerp, the combine and, for identity
-  masking, the development to density).
-
-The TPU builds the glow alone of the mixture tier with the 2-D pyramid
-upsample K13 (``bilinear_upsample_pallas``), which is not ported, and so do
-its pyramid factors other than 4 and frames whose H or W is not a multiple
-of 4: those branches raise NotImplementedError naming K13.
+- above 40, the mixture tier. Where H and W are multiples of 4 and the
+  pyramid has the /4 level alone (every size up to about 163 px), it runs
+  whole in :func:`halation_combined_fused`: K10 (/4 box downsample) -> K2
+  (the pyramid Gaussians on the small image) -> K12 (x4 row upsample) ->
+  K14 (:func:`halation_mega`: the full-res ranks, the x4 column lerp, the
+  combine and, for identity masking, the development to density).
+  Elsewhere :func:`halation_combined_fused` returns None, as the JAX one
+  does, and :func:`halation_blur` builds the glow: the full-res ranks on
+  K2, then per pyramid factor f K10 and K2 on the /f level and the
+  upsample to (H, W), which is K13 (``bilinear_upsample_pallas``) where H
+  and W are multiples of f and otherwise the bilinear resize XLA runs on
+  the TPU (``ops/resize.py``).
 
 The host-side kernel construction is a numpy copy of the JAX package's
 (that module imports JAX), pinned bit-exact to it by the tests.
@@ -32,7 +34,7 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import conv as convops
 from raw2film_tpu_torch.ops import fastmath as fm
-from raw2film_tpu_torch.ops import pyramid, sep_rank
+from raw2film_tpu_torch.ops import pyramid, resize, sep_rank
 
 LOG10_EPS = 1e-6  # clip floor before log10 (raw2film_tpu.config.LOG10_EPS)
 PYR_F = 4  # the pyramid factor K14 serves
@@ -140,13 +142,6 @@ def pyramid_taps(f: int, terms):
     return su, sv
 
 
-def _needs_k13(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"halation: {what} needs bilinear_upsample_pallas (K13), which is not "
-        "ported yet (ROADMAP.md, queue 2)"
-    )
-
-
 # ------------------------------------------------------------ K14
 
 
@@ -231,25 +226,39 @@ def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
 
 
 def halation_combined_fused(img, scale: float, halation_size: float, factors, develop=None):
-    """The mixture tier whole: K10 -> K2 -> K12 -> K14. Returns None below
-    it (size <= 40; the caller runs :func:`halation_blur` and the combine)."""
+    """The mixture tier whole: K10 -> K2 -> K12 -> K14. Returns None where
+    the JAX one does (size <= 40, H or W not a multiple of 4, a pyramid
+    level other than /4): the caller then runs :func:`halation_blur` and
+    the combine."""
     size = scale / 4.0 * halation_size
     if size <= 40.0:
         return None
     h, w = img.shape[-2:]
     if h % PYR_F or w % PYR_F:
-        raise _needs_k13(f"a {h}x{w} frame (H and W must be multiples of {PYR_F})")
+        return None
     us, vs, by_factor = _full_res_ranks(size)
     if list(by_factor) != [PYR_F]:
-        raise _needs_k13(f"pyramid factors {sorted(by_factor)} at size {size}")
+        return None
     small = pyramid.box_downsample_pyramid(img, PYR_F)
     small_blur = sep_rank.fused_sep_rank(small, *pyramid_taps(PYR_F, by_factor[PYR_F]))
     rows_up = pyramid.bilinear_upsample_rows(small_blur, PYR_F, oh=h)
     return halation_mega(img, us, vs, rows_up, factors, develop)
 
 
+def pyramid_upsample(small: torch.Tensor, f: int, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The /f level's blur back to (H, W): K13 where H and W are multiples
+    of f (the shapes ``bilinear_upsample_pallas`` serves), else the
+    half-pixel bilinear resize, scale H / (H // f), of ``jax.image.resize``
+    (its fallback on the TPU)."""
+    hs, ws = small.shape[-2:]
+    if out_hw[0] <= hs * f and out_hw[1] <= ws * f:
+        return pyramid.bilinear_upsample(small, f, out_hw)
+    return resize.resize(small, out_hw, "linear")
+
+
 def halation_blur(img, scale: float, halation_size: float) -> torch.Tensor:
-    """The glow term alone, for the tiers below the mixture tier."""
+    """The glow term alone: the dense or SVD tiers, or the mixture tier's
+    full-res ranks plus its upsampled pyramid levels."""
     size = scale / 4.0 * halation_size
     if size <= 12.0:
         k = exponential_blur_kernel(size).astype(np.float32)
@@ -261,7 +270,13 @@ def halation_blur(img, scale: float, halation_size: float) -> torch.Tensor:
             exponential_blur_kernel(size).astype(np.float32), tol=1e-4, max_rank=8
         )
         return sep_rank.fused_sep_rank(img, u, v)
-    raise _needs_k13(f"the glow alone of the mixture tier (size {size})")
+    us, vs, by_factor = _full_res_ranks(size)
+    blur = sep_rank.fused_sep_rank(img, us, vs)
+    for f, terms in by_factor.items():
+        small = pyramid.box_downsample_pyramid(img, f)
+        small_blur = sep_rank.fused_sep_rank(small, *pyramid_taps(f, terms))
+        blur = blur + pyramid_upsample(small_blur, f, tuple(img.shape[-2:]))
+    return blur
 
 
 def halation_with_factors(img, scale: float, halation_size: float, factors) -> torch.Tensor:

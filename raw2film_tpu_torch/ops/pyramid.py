@@ -1,5 +1,5 @@
-"""Pyramid resampling of the halation glow: the /f box downsample (K10) and
-the row-only half-pixel bilinear upsample (K12).
+"""Pyramid resampling of the halation glow: the /f box downsample (K10), the
+row-only half-pixel bilinear upsample (K12) and the 2-D one (K13).
 
 The counterpart of ``raw2film_tpu/ops/pallas_pyramid.py``:
 
@@ -9,7 +9,9 @@ The counterpart of ``raw2film_tpu/ops/pallas_pyramid.py``:
   order of ``Dh @ x @ Dw``), then scales by float32(1 / f**2);
 - :func:`bilinear_upsample_rows` replaces ``bilinear_upsample_rows_pallas``
   (K12): x f half-pixel lerp of the row axis only, edge clamp, cropped to
-  ``oh`` rows; the columns are untouched.
+  ``oh`` rows; the columns are untouched;
+- :func:`bilinear_upsample` replaces ``bilinear_upsample_pallas`` (K13):
+  x f half-pixel lerp of both axes, edge clamp, cropped to ``out_hw``.
 
 On a CUDA tensor each launches its kernel (``csrc/pyramid.cu``); on a CPU
 tensor it runs its plain version.
@@ -121,4 +123,38 @@ def bilinear_upsample_rows(img: torch.Tensor, f: int, oh: int | None = None) -> 
     )
     kb.check(err, "r2f_upsample_rows")
     kb.launches["pyramid_up_rows"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ K13
+
+
+def bilinear_upsample_plain(img: torch.Tensor, f: int, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Plain version of K13: ``_lerp_matrix_full(h, f)[:oh] @ img @
+    _lerp_matrix_full(w, f)[:ow].T`` in float32 (TF32 must be off)."""
+    oh, ow = out_hw
+    rows = bilinear_upsample_rows_plain(img, f, oh)
+    uw = torch.tensor(_lerp_matrix_full(img.shape[-1], int(f))[:ow].T, device=img.device)
+    return torch.matmul(rows, uw)
+
+
+def bilinear_upsample(img: torch.Tensor, f: int, out_hw: tuple[int, int] | None = None) -> torch.Tensor:
+    """K13 wrapper: (C, h, w) float32 -> (C, oh, ow), oh <= h * f and
+    ow <= w * f (default: the whole x f image)."""
+    f = int(f)
+    if f < 1:
+        raise ValueError(f"upsample: factor {f}")
+    if img.dim() != 3:
+        raise ValueError(f"img: want (C, h, w), got {tuple(img.shape)}")
+    c, hs, ws = img.shape
+    oh, ow = (hs * f, ws * f) if out_hw is None else (int(out_hw[0]), int(out_hw[1]))
+    if not (0 < oh <= hs * f and 0 < ow <= ws * f):
+        raise ValueError(f"upsample: out {(oh, ow)} outside {(hs * f, ws * f)} at x{f}")
+    if not kb.use_kernel(img):
+        return bilinear_upsample_plain(img, f, (oh, ow))
+    kb.require(img, "img", torch.float32)
+    out = torch.empty((c, oh, ow), dtype=torch.float32, device=img.device)
+    err = kb.lib().r2f_upsample(img.data_ptr(), out.data_ptr(), c, hs, ws, f, oh, ow, kb.stream_ptr(img))
+    kb.check(err, "r2f_upsample")
+    kb.launches["pyramid_up"] += 1
     return out

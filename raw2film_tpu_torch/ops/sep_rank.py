@@ -22,8 +22,6 @@ from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops.conv import conv1d_axis
 
-MAX_GRAIN_TAPS = 31
-
 
 def _ranks(taps) -> np.ndarray:
     """An (R, k) or (C, R, k) array as float32; a list of shared 1-D rank
@@ -96,8 +94,8 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     gtaps, n_gtaps = None, 0
     if grain is not None:
         (seed, row_off), prm, gt = grain
-        if len(gt) > MAX_GRAIN_TAPS:
-            raise ValueError(f"grain: {len(gt)} taps, the kernel takes {MAX_GRAIN_TAPS}")
+        if len(gt) > grain_ops.MAX_TAPS:
+            raise ValueError(f"grain: {len(gt)} taps, the kernel takes {grain_ops.MAX_TAPS}")
         prm = prm.to(device=img.device, dtype=torch.float32).contiguous()
         kb.require(prm, "grain prm", torch.float32, (6,))
         prm_ptr = prm.data_ptr()

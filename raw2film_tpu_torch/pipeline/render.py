@@ -2,11 +2,16 @@
 
 The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
 
-    demosaic + input transform (K1)
+    demosaic + input transform (K1; the staged path decodes with
+    ``io/raw.py`` and applies the input matrix in plain torch)
     -> [halation: /4 box downsample (K10) -> small blur (K2)
-        -> x4 row upsample (K12) -> ranks + lerp + combine (K14)]
+        -> x4 row upsample (K12) -> ranks + lerp + combine (K14);
+        or, for other frame sizes and pyramid levels, the full-res ranks
+        (K2) plus per level K10 -> K2 -> K13 or the bilinear resize]
     -> development (in K14's epilogue with identity masking, else plain torch)
-    -> MTF sharpness + grain (K2) -> [burn small map] -> print/encode (K3)
+    -> MTF sharpness + colour grain (K2), or MTF (K2) then grain without it:
+       colour (K8) or black-and-white (K9)
+    -> [burn small map] -> print/encode (K3)
 
 The plain development is PyTorch, as it is XLA on the TPU. Every branch
 whose TPU path needs a kernel that is not ported yet raises
@@ -264,22 +269,25 @@ def render_chain(
 
     mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
     grain_on = bool(cfg.grain and cfg.has_grain)
-    if grain_on and not (mtf_on and cfg.grain == 2):
-        kernel = "grain_apply_bw_pallas (K9)" if cfg.grain == 1 else "grain_apply_pallas (K8)"
-        raise _unported("grain without the fused MTF epilogue", kernel)
-    if mtf_on and grain_on:
+    if grain_on:
+        if cfg.grain not in (1, 2):
+            raise _unported(f"grain mode {cfg.grain}", "grain_field_pallas (K7)")
         prm = grain_ops.grain_params(bundle["grain_rms"], bundle["grain_shape"], cfg.scale)
+        sigma_px = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
+        gseed = grain_ops.seed2(seed, grain_row_offset)
+    if mtf_on and grain_on and cfg.grain == 2:
         d = mtf_ops.film_sharpness_grain(
             d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
-            grain_ops.seed2(seed, grain_row_offset),
-            grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma),
-            prm, signed=cfg.mtf_signed,
+            gseed, sigma_px, prm, signed=cfg.mtf_signed,
         )
-    elif mtf_on:
+        mtf_on = grain_on = False
+    if mtf_on:
         d = mtf_ops.film_sharpness(
             d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
             signed=cfg.mtf_signed,
         )
+    if grain_on:
+        d = grain_ops.grain_apply(d.contiguous(), gseed, sigma_px, prm, bw=cfg.grain == 1)
 
     burn_args = None
     if cfg.highlight_burn:

@@ -110,3 +110,33 @@ def test_halation_kernel(cuda, develop):
     got = _launched("halation", hal_ops.halation_mega, *args)
     tol = 2e-5 if develop else 1e-5
     assert (got - _plain(hal_ops.halation_mega, *args)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("pattern", ["RGGB", "GBRG"])
+@pytest.mark.parametrize("dtype", ["u16", "f32"])
+def test_half_size_kernel(cuda, pattern, dtype):
+    """Odd H and W: the last row and column are dropped; bit-equal."""
+    codes = torch.randint(0, 16000, (45, 67), dtype=torch.int32, device=cuda)
+    x = codes.to(torch.uint16) if dtype == "u16" else codes.to(torch.float32) / 16000.0
+    norm = (256.0, 1.0 / 15000.0) if dtype == "u16" else None
+    got = _launched("half_size", dm.half_size_decode, x, pattern, norm)
+    assert tuple(got.shape) == (3, 22, 33)
+    assert torch.equal(got, _plain(dm.half_size_decode, x, pattern, norm))
+
+
+@pytest.mark.parametrize("f,out_hw", [(4, (41, 115)), (8, (80, 96)), (3, None)])
+def test_upsample_kernel(cuda, f, out_hw):
+    x = torch.rand((3, 11, 29), device=cuda) * 3.0
+    got = _launched("pyramid_up", pyramid.bilinear_upsample, x, f, out_hw)
+    assert (got - _plain(pyramid.bilinear_upsample, x, f, out_hw)).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+@pytest.mark.parametrize("sigma", [0.547, 2.3])
+def test_grain_apply_kernel(cuda, bw, sigma):
+    """3 and 13 correlation taps on a ragged frame; a negative row offset."""
+    d = torch.rand((3, 70, 130), device=cuda) * 3.0
+    prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=cuda)
+    args = (d, (12345, (-7) & 0xFFFFFFFF), sigma, prm, bw)
+    got = _launched("grain_apply_bw" if bw else "grain_apply", grain_ops.grain_apply, *args)
+    assert (got - _plain(grain_ops.grain_apply, *args)).abs().max().item() <= 1e-5

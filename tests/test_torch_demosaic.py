@@ -106,3 +106,46 @@ def test_meta_tensor_has_no_kernel():
     with pytest.raises(ValueError):
         tdm.demosaic_mhc(torch.zeros(8, 8, device="meta"), "RGGB")
     assert kb.launches["demosaic"] == 0
+
+
+# ------------------------------------------------------------ K11, X-Trans
+
+HS_H, HS_W = 35, 131  # odd: the last row and column are dropped
+
+
+@pytest.mark.parametrize("pattern", list(tdm.PATTERNS))
+@pytest.mark.parametrize("kind", ["u16", "f32"])
+def test_half_size_matches_pallas_bit_for_bit(pattern, kind):
+    """K11's plain version against half_size_decode_pallas in interpret mode
+    (chunk 64: three W-chunks, the last one 2 wide) and the XLA slices."""
+    from raw2film_tpu.ops.pallas_pyramid import half_size_decode_pallas
+
+    rng = np.random.default_rng(12)
+    if kind == "u16":
+        x, norm = rng.integers(0, 14000, (HS_H, HS_W)).astype(np.uint16), NORM
+    else:
+        x, norm = rng.uniform(0.0, 1.0, (HS_H, HS_W)).astype(np.float32), None
+    ry, rx = tdm.PATTERNS[pattern]
+    jx = _jax_normalized(x, norm)
+    ref = half_size_decode_pallas(jx, ry, rx, chunk=64, interpret=True)
+    assert ref is not None
+    got = tdm.half_size_decode(torch.from_numpy(x), pattern, norm).numpy()
+    assert got.shape == (3, HS_H // 2, HS_W // 2)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    np.testing.assert_array_equal(got, np.asarray(jdm.half_size_decode(jx, pattern)))
+
+
+def test_half_size_refuses_tiny_frames():
+    with pytest.raises(ValueError):
+        tdm.half_size_decode(torch.zeros(1, 8), "RGGB")
+
+
+def test_masked_demosaic_matches_jax():
+    """The X-Trans decode: its depthwise convs as SVD ranks (the TPU form)
+    against the JAX CPU form's dense shift-and-add convs."""
+    from raw2film_tpu.io.raf import XTRANS_CANONICAL
+
+    x = np.random.default_rng(13).uniform(0.0, 1.0, (40, 54)).astype(np.float32)
+    ref = np.asarray(jdm.demosaic_masked(jnp.asarray(x), XTRANS_CANONICAL, 6, 6))
+    got = tdm.demosaic_masked(torch.from_numpy(x), XTRANS_CANONICAL, 6, 6).numpy()
+    assert np.abs(got - ref).max() <= 1e-5

@@ -1,8 +1,9 @@
 """Halation in the port against the JAX package: kernel K14's plain version
 against ``halation_mega`` in interpret mode, the whole mixture tier against
 the JAX Pallas pieces composed in interpret mode, the ragged-rank K2 small
-blur, the two lower tiers against the JAX CPU form, and the branches that
-need the unported K13.
+blur, the two lower tiers against the JAX CPU form, and the mixture tier's
+other branches (frames whose H or W is not a multiple of 4, the /8 level,
+the glow alone) against the JAX Pallas pieces composed in interpret mode.
 
 The ranks are the 45 MP benchmark config's (228 px/mm, size 57: 4 shared
 ranks of 27 taps and a /4 pyramid of two Gaussians, 15 and 27 taps)."""
@@ -176,23 +177,55 @@ def test_lower_tiers_match_jax_cpu(tier):
     assert np.abs(got - ref).max() <= bound + 1e-6
 
 
-@pytest.mark.parametrize(
-    "case",
-    ["h-not-multiple-of-4", "w-not-multiple-of-4", "pyramid-factor-8", "glow-alone"],
-)
+def _jax_tpu_glow(img: np.ndarray, size: float) -> np.ndarray:
+    """The TPU form of halation_blur's mixture tier (halation.py:167-177),
+    its Pallas pieces run in interpret mode: the full-res ranks, then per
+    pyramid level the box downsample, the small blur and the 2-D upsample
+    (which declines shapes that are not multiples of f, falling back to
+    jax.image.resize)."""
+    us, vs, by_factor = jhal._full_res_ranks(size)
+    ji = jnp.asarray(img)
+    blur = pallas_conv2.fused_sep_rank_mxu(ji, list(us), list(vs), interpret=True)
+    for f, terms in by_factor.items():
+        small = pallas_pyramid.box_downsample_pallas(ji, f, interpret=True)
+        su, sv = thal.pyramid_taps(f, terms)
+        small_blur = pallas_conv2.fused_sep_rank_mxu(small, su, sv, interpret=True)
+        blur = blur + pallas_pyramid.bilinear_upsample_pallas(small_blur, f, img.shape[-2:], interpret=True)
+    return np.asarray(blur)
+
+
+# (frame, halation size): the branches that needed K13 before it was ported.
+K13_CASES = {
+    "h-not-multiple-of-4": ((3, 70, 128), 1.0),  # the bilinear resize, scale 70 / 17
+    "w-not-multiple-of-4": ((3, 72, 126), 1.0),
+    "pyramid-factor-8": ((3, 168, 200), 3.0),  # size 171: the /4 and /8 levels on K13
+    "glow-alone": ((3, 72, 128), 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(K13_CASES))
 def test_branches_needing_k13_raise(case):
-    fac = torch.from_numpy(_factors(False))
-    img = torch.rand(3, 48, 64)
-    with pytest.raises(NotImplementedError, match="K13"):
-        if case == "h-not-multiple-of-4":
-            thal.halation_combined_fused(torch.rand(3, 46, 64), CFG.scale, 1.0, fac)
-        elif case == "w-not-multiple-of-4":
-            thal.halation_with_factors(torch.rand(3, 48, 62), CFG.scale, 1.0, fac)
-        elif case == "pyramid-factor-8":  # size 171: a Gaussian above sigma 48
-            assert 8 in thal._full_res_ranks(CFG.scale / 4.0 * 3.0)[2]
-            thal.halation_combined_fused(img, CFG.scale, 3.0, fac)
-        else:
-            thal.halation_blur(img, CFG.scale, 1.0)
+    """Once NotImplementedError naming K13, each branch now renders as the
+    TPU does: halation_combined_fused returns None (as the JAX one does) and
+    halation_blur builds the glow, held to the JAX Pallas pieces."""
+    shape, hsize = K13_CASES[case]
+    size = CFG.scale / 4.0 * hsize
+    img = _img(shape, 7)
+    fac = _factors(False)
+    if case == "pyramid-factor-8":
+        assert list(thal._full_res_ranks(size)[2]) == [4, 8]
+    if case != "glow-alone":
+        assert thal.halation_combined_fused(torch.from_numpy(img), CFG.scale, hsize, torch.from_numpy(fac)) is None
+    ref = _jax_tpu_glow(img, size)
+    if case == "glow-alone":
+        got = thal.halation_blur(torch.from_numpy(img), CFG.scale, hsize).numpy()
+    else:
+        f = fac.reshape(3, 1, 1)
+        ref = (img + f * ref) / (1.0 + f)
+        got = thal.halation_with_factors(torch.from_numpy(img), CFG.scale, hsize, torch.from_numpy(fac)).numpy()
+    err = np.abs(got - ref).max()
+    print(f"{case}: max abs difference {err}")
+    assert err <= EXPOSURE_TOL
 
 
 def test_below_mixture_tier_returns_none():

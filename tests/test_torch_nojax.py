@@ -1,5 +1,6 @@
-"""The port imports and renders in a process where JAX cannot be imported,
-and no file of it imports JAX."""
+"""The port imports and renders in a process where JAX cannot be imported
+(the render chain, and Processor.process() of a DNG on both paths), and no
+file of it imports JAX."""
 
 import os
 import pathlib
@@ -31,6 +32,18 @@ hal = r2f.render_chain_from_mosaic(
     codes, data.REC709_TO_XYZ, bundle, cfg, 7, norm=(512.0, 1.0 / 15000.0)
 )
 assert tuple(hal.shape) == (3, 64, 384)
+# Processor.process() of a DNG: the staged half-size default and the fused
+# full-res path
+import os, tempfile
+from raw2film_tpu_torch._reference import dng
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "f.dng")
+    dng.write_dng(path, codes[:48, :72].astype(np.float64) * 4, white_level=60000)
+    proc = r2f.Processor(device="cpu")
+    kw = dict(negative_film="Kodak Portra 400", print_film="Fuji Crystal Archive Maxima", seed=1)
+    half = proc.process(path, **kw)
+    full = proc.process(path, half_size=False, max_scale=None, **kw)
+assert half.shape == (24, 36, 3) and full.shape == (48, 72, 3), (half.shape, full.shape)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("rendered", tuple(out.shape), float(out.float().mean()))
 """

@@ -116,3 +116,26 @@ def test_upsample_rows_refuses(bad):
     args = dict(f=4, oh=None) | bad
     with pytest.raises(ValueError):
         pyramid.bilinear_upsample_rows(torch.zeros(3, 24, 40), **args)
+
+
+# (input shape, f, out_hw): shapes whose Pallas grid serves the call (h > 16,
+# w f >= 3 chunks of 512), cropped on both axes.
+UP2D_CASES = {"f4": ((3, 20, 390), 4, (77, 1555)), "f8": ((2, 18, 200), 8, (141, 1597))}
+
+
+@pytest.mark.parametrize("case", list(UP2D_CASES))
+def test_upsample_matches_pallas(case, pallas_calls):
+    shape, f, out_hw = UP2D_CASES[case]
+    x = _img(shape, 4)
+    ref = np.asarray(pallas_pyramid.bilinear_upsample_pallas(jnp.asarray(x), f, out_hw, interpret=True))
+    assert pallas_calls, "the Pallas kernel did not serve this shape"
+    got = pyramid.bilinear_upsample(torch.from_numpy(x), f, out_hw).numpy()
+    assert got.shape == ref.shape == (shape[0], *out_hw)
+    assert np.abs(got - ref).max() <= UP_TOL
+
+
+@pytest.mark.parametrize("bad", [dict(f=0), dict(out_hw=(97, 40)), dict(out_hw=(40, 161))])
+def test_upsample_refuses(bad):
+    args = dict(f=4, out_hw=None) | bad
+    with pytest.raises(ValueError):
+        pyramid.bilinear_upsample(torch.zeros(3, 24, 40), **args)

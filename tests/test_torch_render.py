@@ -2,8 +2,10 @@
 on the CPU: same uint16 mosaic, same normalization, same grain seed, held to
 1 uint8 code. With halation on, the port is held to the JAX chain in its
 TPU form (Pallas kernels in interpret mode), since the JAX CPU form takes
-another halation formulation. Also the branches the port does not serve
-yet, which must raise and never skip a stage."""
+another halation formulation; so are the mixture tier's other branches (a
+frame whose H is not a multiple of 4, the /8 pyramid level). Also the
+branches the port once refused, and the one it still refuses, which must
+raise and never skip a stage."""
 
 import dataclasses
 
@@ -88,9 +90,10 @@ def test_crop_and_gain_match_jax():
     assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
 
 
-# (config overrides, mosaic shape). "halation": the mixture tier (228
-# px/mm, size 57) on a frame whose H is not a multiple of 4, which the TPU
-# serves with the unported 2-D pyramid upsample K13.
+# (config overrides, mosaic shape). The first three once raised naming an
+# unported kernel: "halation" the mixture tier (228 px/mm, size 57) on a frame
+# whose H is not a multiple of 4 (K13), then grain without the MTF (K8) and
+# black-and-white grain (K9). "icc" still raises.
 UNPORTED = {
     "halation": (dict(halation=True, scale=228.0), (34, 48)),
     "grain-without-mtf": (dict(sharpness=False), (32, 48)),
@@ -100,14 +103,30 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_branches_raise(name):
+def test_unported_branches_raise(name, monkeypatch):
+    """"icc" raises; the others render: the halation case through
+    halation_blur's resize tier (no stage skipped), the grain cases within
+    1 code of the JAX CPU form, whose grain is the same hash field."""
     jb, jcfg = _build(256, 384, halation=False)
     overrides, hw = UNPORTED[name]
     cfg = dataclasses.replace(config_from_jax(jcfg), **overrides)
-    with pytest.raises(NotImplementedError, match={"halation": "K13"}.get(name)):
-        render_chain_from_mosaic(
-            _codes(*hw), REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), cfg, 0, norm=NORM
-        )
+    args = (_codes(*hw), REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), cfg, 0)
+    if name == "icc":
+        with pytest.raises(NotImplementedError, match="ops/lut.py"):
+            render_chain_from_mosaic(*args, norm=NORM)
+        return
+    if name == "halation":
+        blurs = []
+        orig = thal.halation_blur
+        monkeypatch.setattr(thal, "halation_blur", lambda *a: blurs.append(a[1:]) or orig(*a))
+        got = render_chain_from_mosaic(*args, norm=NORM)
+        assert blurs == [(228.0, cfg.halation_size)]
+        assert got.dtype == torch.uint8 and tuple(got.shape) == (3, *hw)
+        return
+    jcfg = dataclasses.replace(jcfg, **overrides)
+    worst, equal = _render_both(jb, jcfg, _codes(*hw), key=0)
+    print(f"{name}: max {worst} code, {equal:.6f} of codes equal")
+    assert worst <= 1
 
 
 def test_chroma_nr_is_refused():
@@ -227,3 +246,34 @@ def test_halation_render_without_develop_matches_jax_cpu_form(monkeypatch):
     print(f"halation on, no develop in K14: max {worst} code, {equal:.6f} of codes equal")
     assert calls == [(None,)]
     assert worst <= 1
+
+
+# (config overrides, mosaic): the mixture tier where halation_combined_fused
+# returns None and halation_blur serves the TPU. "resize": H = 194 is not a
+# multiple of 4, so the /4 level goes back by the bilinear resize (scale
+# 194 / 48); "pyramid-8": halation size 3.0 (size 171) adds the /8 level,
+# both levels upsampled by K13 (bilinear_upsample_pallas on the TPU side).
+TIERS = {
+    "resize": (dict(), (194, 640)),
+    "pyramid-8": (dict(halation_size=3.0), (192, 640)),
+}
+
+
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_halation_tiers_match_jax_tpu_form(tier, tpu_form, monkeypatch):
+    """The benchmark config on the two tiers, against the JAX TPU form with
+    float32 MTF taps (see test_halation_render_matches_jax_tpu_form)."""
+    from raw2film_tpu.ops import pallas_conv2
+
+    orig = pallas_conv2.fused_sep_rank_mxu
+    monkeypatch.setattr(
+        pallas_conv2, "fused_sep_rank_mxu", lambda *a, **k: orig(*a, **dict(k, precision=None))
+    )
+    overrides, hw = TIERS[tier]
+    jb, jcfg = _build(5472, 8208)
+    jcfg = dataclasses.replace(jcfg, **overrides)
+    worst, equal = _render_both(jb, jcfg, _codes(*hw, seed=10))
+    print(f"{tier}: max {worst} code, {equal:.6f} of codes equal")
+    assert tpu_form == []  # halation_mega declined: the glow came from halation_blur
+    assert worst <= 1
+    assert equal >= 0.999

@@ -146,3 +146,30 @@ def test_grain_amplitude_matches_render_form():
     t = (d - d_lo) / rng
     ref = rms_eff * (floor + (1 - floor) * jnp.exp(-0.5 * ((t - peak / rng * 0.5 - 0.25) / (width * 0.35)) ** 2))
     assert np.abs(amp - np.asarray(ref)).max() <= 1e-6
+
+
+# ------------------------------------------------------------ K8, K9
+
+
+@pytest.mark.parametrize("sigma", [SIGMA, 1.3], ids=["45MP", "wide"])
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+def test_grain_apply_matches_pallas(bw, sigma):
+    """K8 / K9's plain version against grain_apply_pallas /
+    grain_apply_bw_pallas in interpret mode. H = 70 is not a multiple of the
+    Pallas tile (64 colour, 32 black and white), so the TPU form pads H with
+    edge rows; the hash depends on position only, so the port does not."""
+    d = _density(70, 96, 4)
+    fn = pallas_grain.grain_apply_bw_pallas if bw else pallas_grain.grain_apply_pallas
+    ref = np.asarray(fn(jnp.asarray(d), jnp.asarray([SEED, ROW_OFF], jnp.uint32), sigma, *PRM, interpret=True))
+    got = tgrain.grain_apply(torch.from_numpy(d), (SEED, ROW_OFF), sigma, torch.from_numpy(PRM), bw=bw)
+    assert got.shape == ref.shape
+    err = np.abs(got.numpy() - ref).max()
+    print(f"bw={bw} sigma={sigma}: max abs difference {err}")
+    assert err <= TOL
+
+
+def test_grain_apply_refuses():
+    with pytest.raises(ValueError):
+        tgrain.grain_apply(torch.zeros(1, 8, 8), (0, 0), SIGMA, torch.from_numpy(PRM), bw=True)
+    with pytest.raises(ValueError):
+        tgrain.grain_apply(torch.zeros(3, 8, 8), (0, 0), 20.0, torch.from_numpy(PRM))
