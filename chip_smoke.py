@@ -4,9 +4,13 @@
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions and the TF32 flags; exits non-zero without a CUDA device;
-2. builds the hand-written kernels from ``raw2film_tpu_torch/csrc``;
-3. checks each kernel against its plain PyTorch version on the card, at
-   small ragged shapes and at the shapes of the 45 MP main path;
+2. builds the hand-written kernels from ``raw2film_tpu_torch/csrc`` (one
+   ``nvcc`` per source, started together);
+3. checks each of the fourteen kernels against its plain PyTorch version on
+   the card, at small ragged shapes and at the shapes of the paths below,
+   and times it beside its bound (the larger of its bytes over 3.35 TB/s
+   and its fp32 operations over 67 TFLOP/s) and, where one PyTorch call
+   computes the same function, that call;
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -15,18 +19,24 @@
    code); then the same with halation off;
 5. writes the same mosaic as an uncompressed 5472x8208 DNG to a temporary
    directory and renders it with ``Processor(device="cuda").process()`` in
-   six phases, each with its launch counts checked exactly and its output
+   eight phases, each with its launch counts checked exactly and its output
    held to a plain-version Processor within 1 code: (a) the CLI defaults
-   (half-size decode K11, the SVD halation tier on K2, K2 MTF + grain, K3),
-   (b) full res (the fused path), (c) sharpness off (grain on K8), (d) grain
-   1 (K9), (e) halation size 3.0 at full res (the /4 and /8 pyramid levels,
-   K13 twice), (f) full res on a 36 x 23.9 frame, whose H is not a multiple
-   of 4 (the bilinear resize, neither K13 nor K14);
-6. times the renders, (a) and (b) end to end and stage by stage, and each
-   kernel against its plain version with CUDA events, profiles the
-   halation-on render's device time by kernel, and prints one JSON line of
-   per-kernel results;
-7. prints {"ok": true, "device": {...}} as its last line.
+   (half-size decode K11, the SVD halation tier on K2, K2 MTF + grain, the
+   burn's small-map blur on K4, K3), (b) full res (the fused path), (c)
+   sharpness off (grain on K8), (d) grain 1 (K9), (e) halation size 3.0 at
+   full res (the /4 and /8 pyramid levels, K13 twice), (f) full res on a
+   36 x 23.9 frame, whose H is not a multiple of 4 (the bilinear resize,
+   neither K13 nor K14), (g) chroma NR 3 (its blur on K2), (i) grain 3 (the
+   field alone, K7);
+6. (h) drives ``PreviewEngine`` over that Processor: the full preview of the
+   portrait frame at 15 px/mm (540 x 360, where the TPU runs K4) and the
+   simplified preview at 30 px/mm, each frame held to a plain-version
+   engine within 1 code, its histogram equal to a plain count of its frame,
+   the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP;
+7. times the renders, (a) and (b) end to end and stage by stage, profiles
+   the halation-on render's device time by kernel, and prints one JSON line
+   of per-kernel results;
+8. prints {"ok": true, "device": {...}} as its last line.
 
 Any failed check ends the script with a traceback and a non-zero exit.
 """
@@ -39,25 +49,31 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from raw2film_tpu_torch import Processor, load_film_bundle, render_chain, render_chain_from_mosaic
-from raw2film_tpu_torch._reference import data as ref_data
-from raw2film_tpu_torch._reference import dng, geometry
+from raw2film_tpu_torch import PreviewEngine, Processor, load_film_bundle, render_chain, render_chain_from_mosaic
+from raw2film_tpu_torch import data as ref_data
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
+from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.io import raw as traw
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import burn as burn_ops
+from raw2film_tpu_torch.ops import chroma_nr
 from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
 from raw2film_tpu_torch.ops import pyramid
-from raw2film_tpu_torch.ops import sep_rank
+from raw2film_tpu_torch.ops import sep_conv, sep_rank
+from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
+from raw2film_tpu_torch.ops.histogram import generate_histogram, histogram_counts, render_histogram
+from raw2film_tpu_torch.pipeline import geometry
 from raw2film_tpu_torch.pipeline import processor as tproc
 from raw2film_tpu_torch.pipeline.render import build_render_config
 
@@ -75,19 +91,38 @@ TOL = {
     "demosaic": 2e-6, "sep_rank": 1e-5, "print_encode": 1.0, "print_encode_float": 1e-4,
     "pyramid_down": 1e-6, "pyramid_up_rows": 2e-6, "halation": 1e-5, "halation_density": 2e-5,
     "half_size": 0.0, "pyramid_up": 2e-6, "grain_apply": 1e-5, "grain_apply_bw": 1e-5,
+    "sep_rank_narrow": 1e-5, "grain_field": 1e-5, "conv_w": 1e-6, "conv_h": 1e-6,
 }
+# name -> (the TPU kernel's number, source, the TPU kernel it replaces), in
+# the order of the TPU kernels. K4 is the K2 kernel on the shapes the TPU's
+# K2 declines (ops/sep_rank.py::tpu_declines).
 KERNELS = {
-    "demosaic": ("raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_demosaic.py:191"),
-    "half_size": ("raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_pyramid.py:205"),
-    "pyramid_down": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:65"),
-    "sep_rank": ("raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:576"),
-    "pyramid_up_rows": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:277"),
-    "pyramid_up": ("raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:374"),
-    "halation": ("raw2film_tpu_torch/csrc/halation.cu", "raw2film_tpu/ops/pallas_halation.py:239"),
-    "grain_apply": ("raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:306"),
-    "grain_apply_bw": ("raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:405"),
-    "print_encode": ("raw2film_tpu_torch/csrc/print_encode.cu", "raw2film_tpu/ops/pallas_print.py:164"),
+    "demosaic": ("K1", "raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_demosaic.py:191"),
+    "sep_rank": ("K2", "raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:576"),
+    "print_encode": ("K3", "raw2film_tpu_torch/csrc/print_encode.cu", "raw2film_tpu/ops/pallas_print.py:164"),
+    "sep_rank_narrow": ("K4", "raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:269"),
+    "conv_w": ("K5", "raw2film_tpu_torch/csrc/conv1d.cu", "raw2film_tpu/ops/pallas_conv2.py:84"),
+    "conv_h": ("K6", "raw2film_tpu_torch/csrc/conv1d.cu", "raw2film_tpu/ops/pallas_conv2.py:117"),
+    "grain_field": ("K7", "raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:249"),
+    "grain_apply": ("K8", "raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:306"),
+    "grain_apply_bw": ("K9", "raw2film_tpu_torch/csrc/grain.cu", "raw2film_tpu/ops/pallas_grain.py:405"),
+    "pyramid_down": ("K10", "raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:65"),
+    "half_size": ("K11", "raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_pyramid.py:205"),
+    "pyramid_up_rows": ("K12", "raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:277"),
+    "pyramid_up": ("K13", "raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:374"),
+    "halation": ("K14", "raw2film_tpu_torch/csrc/halation.cu", "raw2film_tpu/ops/pallas_halation.py:239"),
 }
+# The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): device memory and
+# fp32 outside the tensor cores. A kernel's bound is the larger of its bytes
+# (each input read once, each output written once) over the first and its
+# fp32 operations (a multiply-add counts 2) over the second.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def counts(**nonzero) -> dict:
@@ -96,26 +131,54 @@ def counts(**nonzero) -> dict:
 
 
 # Launches of each kernel in one 45 MP render: with halation, K2 runs twice
-# (the /4 small blur and the MTF + grain).
-LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, pyramid_up_rows=1, halation=1, print_encode=1)
-LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, print_encode=1)
+# (the /4 small blur and the MTF + grain); the burn's small map (49 x 74) is
+# blurred on K4.
+LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1,
+                     halation=1, print_encode=1)
+LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
 # Processor.process() of the DNG: (overrides of the benchmark settings,
-# launches per render, output shape).
+# launches per render, output shape). Every phase blurs the burn's small map
+# on K4 once.
 HALF = (H // 2, W // 2, 3)
 PHASES = {
-    "a": ({}, counts(half_size=1, sep_rank=2, print_encode=1), HALF),
+    "a": ({}, counts(half_size=1, sep_rank=2, sep_rank_narrow=1, print_encode=1), HALF),
     "b": (dict(half_size=False, max_scale=None), LAUNCHES_ON, (H, W, 3)),
-    "c": (dict(sharpness=False), counts(half_size=1, sep_rank=1, grain_apply=1, print_encode=1), HALF),
-    "d": (dict(grain=1), counts(half_size=1, sep_rank=2, grain_apply_bw=1, print_encode=1), HALF),
+    "c": (dict(sharpness=False),
+          counts(half_size=1, sep_rank=1, sep_rank_narrow=1, grain_apply=1, print_encode=1), HALF),
+    "d": (dict(grain=1),
+          counts(half_size=1, sep_rank=2, sep_rank_narrow=1, grain_apply_bw=1, print_encode=1), HALF),
     "e": (
         dict(half_size=False, max_scale=None, halation_size=3.0),
-        counts(demosaic=1, pyramid_down=2, sep_rank=4, pyramid_up=2, print_encode=1),
+        counts(demosaic=1, pyramid_down=2, sep_rank=4, sep_rank_narrow=1, pyramid_up=2, print_encode=1),
         (H, W, 3),
     ),
     "f": (
         dict(half_size=False, max_scale=None, frame_height=23.9),
-        counts(demosaic=1, pyramid_down=1, sep_rank=3, print_encode=1),
+        counts(demosaic=1, pyramid_down=1, sep_rank=3, sep_rank_narrow=1, print_encode=1),
         (5449, 8207, 3),
+    ),
+    # chroma NR: its chromaticity blur is one shared rank on K2
+    "g": (dict(chroma_nr=3), counts(half_size=1, sep_rank=3, sep_rank_narrow=1, print_encode=1), HALF),
+    # grain 3: the MTF alone on K2, then the field alone on K7
+    "i": (dict(grain=3),
+          counts(half_size=1, sep_rank=2, sep_rank_narrow=1, grain_field=1, print_encode=1), HALF),
+}
+# PreviewEngine requests (h): (request parameters, launches of the first
+# frame, frame shape). The full preview of the portrait frame renders 540 x
+# 360 at 15 px/mm: the halation glow (a 5 x 5 kernel, 2 ranks) and the burn
+# blur on K4, the MTF + grain on K2; the simplified one 720 x 1080 at 30
+# px/mm without halation, MTF or grain. Both frames are resized back to the
+# decoded size, as the JAX Processor does.
+PREVIEWS = {
+    "full-15-portrait": (
+        dict(full_preview=True, max_scale=15.0, rotate_times=1),
+        counts(half_size=1, sep_rank=1, sep_rank_narrow=2, print_encode=1),
+        (W // 2, H // 2, 3),
+    ),
+    "simplified-30": (
+        dict(max_scale=30.0),
+        counts(half_size=1, sep_rank_narrow=1, print_encode=1),
+        (H // 2, W // 2, 3),
     ),
 }
 STOCKS = dict(negative_film="Kodak Portra 400", print_film="Fuji Crystal Archive Maxima")
@@ -179,6 +242,37 @@ NORM = (512.0, 1.0 / 15000.0)
 # ------------------------------------------------------------ kernel checks
 
 
+def med(fn, iters: int) -> float:
+    return statistics.median(cuda_ms(fn, iters))
+
+
+def dense_kernels(u3, v3, c: int) -> np.ndarray:
+    """(c, kv, kh) float32 2-D kernels of (Cb, R, k) rank stacks: the sum of
+    each channel's outer products (Cb = 1: shared by the c channels)."""
+    k = np.einsum("crk,crl->ckl", np.asarray(u3, np.float64), np.asarray(v3, np.float64))
+    return np.ascontiguousarray(np.broadcast_to(k, (c, *k.shape[1:])), np.float32)
+
+
+def library_conv_ms(x: torch.Tensor, k2d: np.ndarray, iters: int = 5) -> float:
+    """One grouped F.conv2d (TF32 off) of the reflect-padded image with the
+    per-channel 2-D kernels: the library call that computes a sum of
+    separable ranks with reflect-101 borders. The padding is made before
+    the clock starts."""
+    c = x.shape[0]
+    ph, pw = k2d.shape[1] // 2, k2d.shape[2] // 2
+    xp = F.pad(x[None], (pw, pw, ph, ph), mode="reflect")
+    wt = torch.as_tensor(k2d[:, None], device=x.device)
+    return med(lambda: F.conv2d(xp, wt, groups=c), iters)
+
+
+def rank_flops(u3, v3, hw) -> float:
+    """Multiply-adds of a rank stack over an image: every tap of every
+    nonzero rank, each channel (2 FLOPs each)."""
+    u3, v3 = np.asarray(u3), np.asarray(v3)
+    live = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
+    return 2.0 * float(live.sum()) * (u3.shape[2] + v3.shape[2]) * hw[0] * hw[1]
+
+
 def check_demosaic(device, full_hw) -> dict:
     g = torch.Generator(device=device).manual_seed(1)
     mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
@@ -194,9 +288,16 @@ def check_demosaic(device, full_hw) -> dict:
     got = dm.demosaic_exposure(codes, "RGGB", mat, NORM)
     err = max_err(got, plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM))
     expect("demosaic", err, TOL["demosaic"], f"u16+norm+mat {full_hw[0]}x{full_hw[1]}")
-    ms = cuda_ms(lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM), 20)
-    plain_ms = cuda_ms(lambda: plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM), 5)
-    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms)}
+    px = full_hw[0] * full_hw[1]
+    return {
+        "max_abs_err": err,
+        "ms": med(lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM), 20),
+        "plain_ms": med(lambda: plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM), 5),
+        # u16 in, 3 float32 out; per pixel the normalize, the MHC filter
+        # (about 13 taps for each of 2 missing colours) and the 3x3 matrix
+        **bound(px * (2 + 12), px * (2 + 2 * 2 * 13 + 15)),
+        "library_ms": None,
+    }
 
 
 def check_sep_rank(device, full_hw, cfg) -> dict:
@@ -230,8 +331,7 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
     expect("sep_rank", max_err(sep_rank.fused_sep_rank(sm, su, sv),
                                plain(sep_rank.fused_sep_rank, sm, su, sv)),
            TOL["sep_rank"], f"ragged shared ranks {tuple(sm.shape)}")
-    sm_ms = cuda_ms(lambda: sep_rank.fused_sep_rank(sm, su, sv), 20)
-    print(f"  sep_rank /4 small blur {tuple(sm.shape)}: {statistics.median(sm_ms)!r} ms")
+    print(f"  sep_rank /4 small blur {tuple(sm.shape)}: {med(lambda: sep_rank.fused_sep_rank(sm, su, sv), 20)!r} ms")
     del sm
     for (x0, y0, ch) in ((0, 0, 0), (8150, 5430, 2)):
         a, b = sep_rank.hash_words_kernel(64, 96, x0, y0, ch, *seed, device)
@@ -244,9 +344,110 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
     err = max_err(got, plain(sep_rank.fused_sep_rank, d, u3, v3, grain))
     expect("sep_rank", err, TOL["sep_rank"], f"per-channel + grain 3x{full_hw[0]}x{full_hw[1]}")
     del got
-    ms = cuda_ms(lambda: sep_rank.fused_sep_rank(d, u3, v3, grain), 10)
-    plain_ms = cuda_ms(lambda: plain(sep_rank.fused_sep_rank, d, u3, v3, grain), 3)
-    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms)}
+    px = full_hw[0] * full_hw[1]
+    n = len(gtaps)
+    return {
+        "max_abs_err": err,
+        "ms": med(lambda: sep_rank.fused_sep_rank(d, u3, v3, grain), 10),
+        "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, d, u3, v3, grain), 3),
+        # the ranks, then per output the grain's two correlation passes and
+        # its amplitude (about 12 FLOPs); float32 in and out
+        **bound(3 * px * 8, rank_flops(u3, v3, full_hw) + 3 * px * (4 * n + 12)),
+        # the convolution alone: the grain has no library counterpart
+        "library_ms": library_conv_ms(d, dense_kernels(u3, v3, 3), 3),
+    }
+
+
+def check_sep_rank_narrow(device) -> dict:
+    """K4: the K2 kernel on the narrow preview frame (540 x 360 portrait at
+    15 px/mm), which the TPU's K2 declines: the per-channel MTF stack of that
+    scale and, with one shared rank, the chroma NR blur of its x and y
+    planes; then the burn's small map at 45 MP."""
+    g = torch.Generator(device=device).manual_seed(12)
+    _, cfg15 = load_film_bundle(h=540, w=360, device=device, grain=2, sharpness=True)
+    u3, v3 = mtf_ops.mtf_taps(cfg15.mtf_key, cfg15.scale)
+    nr = chroma_nr.cv_gaussian_kernel1d(7, 0.3 * (3.0 - 1.0) + 0.8)[None]
+    for shape in ((3, 37, 29), (3, 540, 360)):
+        x = torch.rand(shape, generator=g, device=device) * 3.0
+        if not sep_rank.tpu_declines(shape[1], shape[2], u3.shape[-1] // 2):
+            raise AssertionError(f"K2 should decline {shape}")
+        expect("sep_rank_narrow", max_err(sep_rank.fused_sep_rank(x, u3, v3),
+                                          plain(sep_rank.fused_sep_rank, x, u3, v3)),
+               TOL["sep_rank_narrow"], f"per-channel {u3.shape} {shape}")
+        x2 = x[:2].contiguous()
+        expect("sep_rank_narrow", max_err(sep_rank.fused_sep_rank(x2, nr, nr),
+                                          plain(sep_rank.fused_sep_rank, x2, nr, nr)),
+               TOL["sep_rank_narrow"], f"one shared rank of {nr.shape[1]} taps {tuple(x2.shape)}")
+    small = torch.rand((1, 49, 74), generator=g, device=device)
+    k = gaussian_kernel1d(3.0, truncate=2.0)[None]
+    expect("sep_rank_narrow", max_err(sep_rank.fused_sep_rank(small, k, k),
+                                      plain(sep_rank.fused_sep_rank, small, k, k)),
+           TOL["sep_rank_narrow"], "burn small map 1x49x74")
+    err = max_err(sep_rank.fused_sep_rank(x, u3, v3), plain(sep_rank.fused_sep_rank, x, u3, v3))
+    px = 540 * 360
+    return {
+        "max_abs_err": err,
+        "ms": med(lambda: sep_rank.fused_sep_rank(x, u3, v3), 20),
+        "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, x, u3, v3), 5),
+        **bound(3 * px * 8, rank_flops(u3, v3, (540, 360))),
+        "library_ms": library_conv_ms(x, dense_kernels(u3, v3, 3), 20),
+    }
+
+
+def check_conv1d(device, full_hw, cfg) -> tuple[dict, dict]:
+    """K5 and K6 at small ragged shapes with 1 to 31 taps, then at 45 MP with
+    the MTF's first 23-tap row."""
+    g = torch.Generator(device=device).manual_seed(13)
+    taps23 = np.asarray(mtf_ops.mtf_taps(cfg.mtf_key, cfg.scale)[1][0, 0])
+    out = {}
+    for name in ("conv_w", "conv_h"):
+        fn = getattr(sep_conv, name)
+        for shape, n in (((2, 40, 45), 1), ((3, 70, 45), 3), ((1, 71, 37), 9), ((2, 90, 130), 31)):
+            x = torch.rand(shape, generator=g, device=device)
+            t = np.random.default_rng(n).uniform(-0.2, 1.0, n)
+            t = (t / t.sum()).astype(np.float32)
+            expect(name, max_err(fn(x, t), plain(fn, x, t)), TOL[name], f"{n} taps {shape}")
+        x = torch.rand((3, *full_hw), generator=g, device=device)
+        err = max_err(fn(x, taps23), plain(fn, x, taps23))
+        expect(name, err, TOL[name], f"{len(taps23)} taps 3x{full_hw[0]}x{full_hw[1]}")
+        n = int(np.count_nonzero(taps23))
+        k2d = taps23.reshape(1, 1, -1) if name == "conv_w" else taps23.reshape(1, -1, 1)
+        out[name] = {
+            "max_abs_err": err,
+            "ms": med(lambda: fn(x, taps23), 20),
+            "plain_ms": med(lambda: plain(fn, x, taps23), 3),
+            **bound(x.numel() * 8, x.numel() * 2 * n),
+            "library_ms": library_conv_ms(x, np.repeat(k2d, 3, 0), 10),
+        }
+        del x
+    return out["conv_w"], out["conv_h"]
+
+
+def check_grain_field(device, full_hw, cfg) -> dict:
+    """K7, colour and black-and-white, at ragged shapes with 1 to 13 taps and
+    at 45 MP with its 3 taps; the colour field at 45 MP is reported."""
+    sigma = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
+    seed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
+    result = None
+    for bw in (True, False):
+        for hw, sg in (((70, 96), 0.1), ((45, 71), sigma), ((37, 53), 2.3), (full_hw, sigma)):
+            args = (seed, hw, sg)
+            err = max_err(grain_ops.grain_field(*args, bw=bw, device=device),
+                          plain(grain_ops.grain_field, *args, bw=bw, device=device))
+            expect("grain_field", err, TOL["grain_field"],
+                   f"bw={bw} {len(grain_ops.grain_corr_taps(sg))} taps {hw}")
+        if not bw:
+            n = len(grain_ops.grain_corr_taps(sigma))
+            numel = 3 * full_hw[0] * full_hw[1]
+            result = {
+                "max_abs_err": err,
+                "ms": med(lambda: grain_ops.grain_field(seed, full_hw, sigma, device=device), 20),
+                "plain_ms": med(lambda: plain(grain_ops.grain_field, seed, full_hw, sigma, device=device), 3),
+                # written once; per output the two correlation passes
+                **bound(numel * 4, numel * 4 * n),
+                "library_ms": None,
+            }
+    return result
 
 
 def check_print_encode(device, full_hw, bundle, cfg) -> dict:
@@ -276,9 +477,17 @@ def check_print_encode(device, full_hw, bundle, cfg) -> dict:
     args = (dfull, pvec, cfg.print_mode, cfg.shadow_comp, cfg.sat_neutral, cfg.gamma_func, True, burn)
     err = max_err(pe.print_encode(*args), plain(pe.print_encode, *args))
     expect("print_encode", err, TOL["print_encode"], f"burn 3x{full_hw[0]}x{full_hw[1]}")
-    ms = cuda_ms(lambda: pe.print_encode(*args), 20)
-    plain_ms = cuda_ms(lambda: plain(pe.print_encode, *args), 5)
-    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms)}
+    px = full_hw[0] * full_hw[1]
+    return {
+        "max_abs_err": err,
+        "ms": med(lambda: pe.print_encode(*args), 20),
+        "plain_ms": med(lambda: plain(pe.print_encode, *args), 5),
+        # 3 float32 in, 3 uint8 out; per pixel the burn lerp, the print
+        # curves (about 3 x 30 FLOPs with their exp2/log2), the 3x3 mixes
+        # and the encode
+        **bound(px * (12 + 3), px * 150),
+        "library_ms": None,
+    }
 
 
 def check_pyramid(device, full_hw) -> tuple[dict, dict]:
@@ -299,8 +508,10 @@ def check_pyramid(device, full_hw) -> tuple[dict, dict]:
     expect("pyramid_down", err, TOL["pyramid_down"], f"f=4 3x{h}x{w}")
     down = {
         "max_abs_err": err,
-        "ms": statistics.median(cuda_ms(lambda: pyramid.box_downsample_pyramid(x, 4), 20)),
-        "plain_ms": statistics.median(cuda_ms(lambda: plain(pyramid.box_downsample_pyramid, x, 4), 5)),
+        "ms": med(lambda: pyramid.box_downsample_pyramid(x, 4), 20),
+        "plain_ms": med(lambda: plain(pyramid.box_downsample_pyramid, x, 4), 5),
+        **bound(x.numel() * 4 * (1 + 1 / 16), x.numel()),
+        "library_ms": med(lambda: F.avg_pool2d(x[None], 4), 20),
     }
     del x
     s = torch.rand((3, h // 4, w // 4), generator=g, device=device) * 3.0
@@ -308,8 +519,12 @@ def check_pyramid(device, full_hw) -> tuple[dict, dict]:
     expect("pyramid_up_rows", err, TOL["pyramid_up_rows"], f"f=4 {tuple(s.shape)} -> {h} rows")
     up = {
         "max_abs_err": err,
-        "ms": statistics.median(cuda_ms(lambda: pyramid.bilinear_upsample_rows(s, 4, h), 20)),
-        "plain_ms": statistics.median(cuda_ms(lambda: plain(pyramid.bilinear_upsample_rows, s, 4, h), 5)),
+        "ms": med(lambda: pyramid.bilinear_upsample_rows(s, 4, h), 20),
+        "plain_ms": med(lambda: plain(pyramid.bilinear_upsample_rows, s, 4, h), 5),
+        # read the /4 level, write 4x its rows; a lerp (3 FLOPs) per output
+        **bound(s.numel() * 4 * 5, s.numel() * 4 * 3),
+        "library_ms": med(lambda: F.interpolate(s[None], size=(s.shape[1] * 4, s.shape[2]), mode="bilinear",
+                                                align_corners=False)[..., :h, :], 20),
     }
     return down, up
 
@@ -348,11 +563,20 @@ def check_halation(device, bundle, cfg) -> dict:
             tol = TOL["halation"] if dv is None else TOL["halation_density"]
             err = max_err(hal_ops.halation_mega(*args), plain(hal_ops.halation_mega, *args))
             expect("halation", err, tol, f"{len(us)}x{len(us[0])} taps develop={dv is not None} 3x{hw[0]}x{hw[1]}")
-        ms = statistics.median(cuda_ms(lambda: hal_ops.halation_mega(*args), 10))
-        plain_ms = statistics.median(cuda_ms(lambda: plain(hal_ops.halation_mega, *args), 3))
+        ms = med(lambda: hal_ops.halation_mega(*args), 10)
+        plain_ms = med(lambda: plain(hal_ops.halation_mega, *args), 3)
         print(f"  halation {hw[0]}x{hw[1]} ({len(us[0])} taps, develop): {ms!r} ms vs plain {plain_ms!r} ms")
         if result is None:
-            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            u2, v2 = sep_rank._stack(us, vs)
+            numel = img.numel()
+            result = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                # the exposure and the /4 rows in, the density out; the
+                # shared ranks on 3 channels, then per output the x4 lerp,
+                # the combine and the development (about 60 FLOPs)
+                **bound(4 * (2 * numel + rows_up.numel()), rank_flops(u2, v2, hw) * 3 + numel * 60),
+                "library_ms": None,
+            }
         del img, rows_up, args
     return result
 
@@ -370,9 +594,15 @@ def check_half_size(device, full_hw) -> dict:
     codes = mosaic_codes(*full_hw, 3, device)
     err = max_err(dm.half_size_decode(codes, "RGGB", NORM), plain(dm.half_size_decode, codes, "RGGB", NORM))
     expect("half_size", err, TOL["half_size"], f"u16+norm {full_hw[0]}x{full_hw[1]}")
-    ms = cuda_ms(lambda: dm.half_size_decode(codes, "RGGB", NORM), 20)
-    plain_ms = cuda_ms(lambda: plain(dm.half_size_decode, codes, "RGGB", NORM), 5)
-    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms)}
+    px = full_hw[0] * full_hw[1]
+    return {
+        "max_abs_err": err,
+        "ms": med(lambda: dm.half_size_decode(codes, "RGGB", NORM), 20),
+        "plain_ms": med(lambda: plain(dm.half_size_decode, codes, "RGGB", NORM), 5),
+        # u16 mosaic in, 3 float32 planes of a quarter of its size out
+        **bound(px * 2 + px // 4 * 12, px * 3),
+        "library_ms": None,
+    }
 
 
 def check_upsample(device, full_hw) -> dict:
@@ -389,10 +619,18 @@ def check_upsample(device, full_hw) -> dict:
         s_ = torch.rand((3, full_hw[0] // f, full_hw[1] // f), generator=g, device=device)
         err = max_err(pyramid.bilinear_upsample(s_, f, full_hw), plain(pyramid.bilinear_upsample, s_, f, full_hw))
         expect("pyramid_up", err, TOL["pyramid_up"], f"f={f} {tuple(s_.shape)} -> {full_hw}")
-        ms = statistics.median(cuda_ms(lambda: pyramid.bilinear_upsample(s_, f, full_hw), 20))
-        plain_ms = statistics.median(cuda_ms(lambda: plain(pyramid.bilinear_upsample, s_, f, full_hw), 5))
+        ms = med(lambda: pyramid.bilinear_upsample(s_, f, full_hw), 20)
+        plain_ms = med(lambda: plain(pyramid.bilinear_upsample, s_, f, full_hw), 5)
         print(f"  pyramid_up f={f} {tuple(s_.shape)} -> {full_hw}: {ms!r} ms vs plain {plain_ms!r} ms")
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        out_numel = 3 * full_hw[0] * full_hw[1]
+        result = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            # the level in, the full frame out; a 2-D lerp (6 FLOPs) per output
+            **bound(4 * (s_.numel() + out_numel), 6 * out_numel),
+            "library_ms": med(lambda: F.interpolate(
+                s_[None], size=(s_.shape[1] * f, s_.shape[2] * f), mode="bilinear",
+                align_corners=False)[..., : full_hw[0], : full_hw[1]], 20),
+        }
     return result
 
 
@@ -404,6 +642,7 @@ def check_grain_apply(device, full_hw, cfg) -> tuple[dict, dict]:
     g = torch.Generator(device=device).manual_seed(11)
     sigma = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
     half_sigma = grain_ops.correlation_sigma_px(cfg.scale / 2, cfg.grain_size_mm, cfg.grain_sigma)
+    n = len(grain_ops.grain_corr_taps(sigma))
     out = {}
     for bw, name in ((False, "grain_apply"), (True, "grain_apply_bw")):
         for shape, sg in (((3, 45, 71), sigma), ((3, 45, 71), 2.3), ((3, full_hw[0] // 2, full_hw[1] // 2), half_sigma)):
@@ -414,10 +653,17 @@ def check_grain_apply(device, full_hw, cfg) -> tuple[dict, dict]:
         d = torch.rand((3, *full_hw), generator=g, device=device) * 3.0
         args = (d, seed, sigma, prm, bw)
         err = max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args))
-        expect(name, err, TOL[name], f"{len(grain_ops.grain_corr_taps(sigma))} taps 3x{full_hw[0]}x{full_hw[1]}")
-        ms = statistics.median(cuda_ms(lambda: grain_ops.grain_apply(*args), 20))
-        plain_ms = statistics.median(cuda_ms(lambda: plain(grain_ops.grain_apply, *args), 3))
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        expect(name, err, TOL[name], f"{n} taps 3x{full_hw[0]}x{full_hw[1]}")
+        fields = 1 if bw else 3
+        out[name] = {
+            "max_abs_err": err,
+            "ms": med(lambda: grain_ops.grain_apply(*args), 20),
+            "plain_ms": med(lambda: plain(grain_ops.grain_apply, *args), 3),
+            # density in and out; per field value the two correlation
+            # passes, per density the amplitude (about 12 FLOPs) and the add
+            **bound(d.numel() * 8, d.numel() // 3 * fields * 4 * n + d.numel() * 14),
+            "library_ms": None,
+        }
         del d, args
     return out["grain_apply"], out["grain_apply_bw"]
 
@@ -550,6 +796,112 @@ def processor_phase(device, path: str, name: str) -> dict:
     return launches
 
 
+class PlainProcessor(Processor):
+    """A Processor whose renders run the plain versions (on its preview
+    worker's thread, where the engine calls it)."""
+
+    def process(self, *args, **kw):
+        with kb.plain_reference():
+            return super().process(*args, **kw)
+
+
+def run_engine(proc, path: str, kw: dict, frames: int) -> tuple[list, list]:
+    """``frames`` requests through one PreviewEngine, each awaited: (the
+    (image, histogram) frames, the host ms from request to frame)."""
+    got, errors, lat = [], [], []
+    done = threading.Event()
+    engine = PreviewEngine(proc, on_frame=lambda img, hist: (got.append((img, hist)), done.set()),
+                           on_error=lambda e: (errors.append(e), done.set()))
+    try:
+        for _ in range(frames):
+            done.clear()
+            t0 = time.perf_counter()
+            engine.request(path, **kw)
+            if not done.wait(600):
+                raise AssertionError("preview frame timed out")
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if errors:
+                raise errors[0]
+    finally:
+        engine.close()
+    return got, lat
+
+
+def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
+    """(h): one cold frame with exact launch counts, held to a plain-version
+    engine within 1 code, its histogram equal to a plain count of its frame
+    on the host; then the latency of 5 frames after it (the decode cached,
+    as when a slider moves)."""
+    params, want, shape = PREVIEWS[name]
+    kw = dict(SETTINGS, **params)
+    label = f"preview ({name}) {params}"
+    proc = Processor(device=device)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    (frame,), (cold,) = run_engine(proc, path, kw, 1)
+    launches = dict(kb.launches)
+    print(f"{label}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    img, hist = frame
+    if img.dtype != np.uint8 or img.shape != shape:
+        raise AssertionError(f"{label}: frame {img.dtype} {img.shape}, want {shape}")
+    ref, ref_hist = run_engine(PlainProcessor(device=device), path, kw, 1)[0][0]
+    diff = np.abs(img.astype(np.int16) - ref.astype(np.int16))
+    worst, equal = int(diff.max()), float((diff == 0).mean())
+    print(f"{label} vs a plain-version engine: max {worst} code, {equal!r} of codes equal")
+    if worst > 1:
+        raise AssertionError(f"{label} differs from the plain engine by {worst} codes")
+    host_counts = histogram_counts(torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1))))
+    if not np.array_equal(hist, render_histogram(host_counts.numpy(), hist.shape[0])):
+        raise AssertionError(f"{label}: the histogram differs from a host count of its frame")
+    print(f"{label}: histogram equal to a host count of its frame; equal to the plain engine's: "
+          f"{bool(np.array_equal(hist, ref_hist))}")
+    _, lat = run_engine(proc, path, kw, 6)
+    lat = lat[1:]
+    print(f"{label} on {card}: cold frame {cold!r} ms, then median {statistics.median(lat)!r} ms "
+          f"(host clock, request to frame), all {lat!r}")
+    # A warm frame's parts, as the engine's worker runs them: process()
+    # with the request's settings (the decode cached), then the histogram;
+    # and, inside process(), its finish alone (the uint8 frame resized back
+    # to the decoded size on the device, then clipped and cast on the host).
+    pk = dict(kw)
+    if not pk.pop("full_preview", False):
+        pk.update(sharpness=False, grain=0, halation=False)
+    parts = {"process_ms": [], "finish_ms": [], "histogram_ms": []}
+    for _ in range(3):
+        image, t = host_ms(lambda: proc.process(path, **pk))
+        parts["process_ms"].append(t)
+        xyz, orig_resolution, _ = proc._image_cache
+        rendered = np.zeros((3, *xyz.shape[-2:]), np.uint8)
+        parts["finish_ms"].append(host_ms(lambda: proc._finish(rendered, orig_resolution=orig_resolution))[1])
+        parts["histogram_ms"].append(host_ms(lambda: generate_histogram(
+            image.transpose(2, 0, 1), device=device))[1])
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    print(f"{label} warm frame parts on {card}, median of 3 (ms): {parts!r}")
+    return launches, {"cold_ms": cold, "frame_ms": statistics.median(lat), "all_ms": lat,
+                      "codes_equal": equal, **parts}
+
+
+def sep_conv_phase(device, cfg) -> dict:
+    """(j): ``ops/sep_conv.py`` at 45 MP, the sum of the MTF's four
+    23-tap ranks of one channel (K6 then K5 per rank), held to the plain
+    versions."""
+    u, v = (np.asarray(t[0]) for t in mtf_ops.mtf_taps(cfg.mtf_key, cfg.scale))
+    x = torch.rand((3, H, W), generator=torch.Generator(device=device).manual_seed(14), device=device)
+    want = counts(conv_w=len(u), conv_h=len(u))
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    got = sep_conv.sep_conv_rank(x, u, v)
+    torch.cuda.synchronize()
+    launches = dict(kb.launches)
+    print(f"sep_conv_rank 3x{H}x{W}, {u.shape} ranks: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"sep_conv_rank: launches {launches}, want {want}")
+    expect("sep_conv_rank", max_err(got, plain(sep_conv.sep_conv_rank, x, u, v)), 1e-5, f"3x{H}x{W}")
+    return launches
+
+
 def host_ms(fn, sync: bool = True) -> tuple[object, float]:
     """(fn(), host ms), with a device synchronize before the clock stops."""
     t0 = time.perf_counter()
@@ -573,14 +925,14 @@ def timed_render(fn) -> tuple[float, float]:
 
 
 def time_processor(device, path: str, card: str) -> dict:
-    """(a) and (b) end to end (host clock around process(), which ends with
+    """(a), (b), (g) and (i) end to end (host clock around process(), which ends with
     the download of the uint8 image), then stage by stage: the host read of
     the DNG, (a) upload + device decode, the exposure fetch and the geometry
     round trip through the host, (b) the host exposure estimate and crop,
     and the render with CUDA events around its device part."""
     proc = Processor(device=device)
     result = {}
-    for name in ("a", "b"):
+    for name in ("a", "b", "g", "i"):
         kw = dict(SETTINGS, **PHASES[name][0])
         proc.process(path, cache=False, **kw)  # warm-up
         wall = [host_ms(lambda: proc.process(path, cache=False, **kw), sync=False)[1] for _ in range(5)]
@@ -655,7 +1007,10 @@ def main() -> int:
         "demosaic": check_demosaic(device, (H, W)),
         "sep_rank": check_sep_rank(device, (H, W), cfg),
         "print_encode": check_print_encode(device, (H, W), bundle, cfg),
+        "sep_rank_narrow": check_sep_rank_narrow(device),
     }
+    results["conv_w"], results["conv_h"] = check_conv1d(device, (H, W), cfg)
+    results["grain_field"] = check_grain_field(device, (H, W), cfg)
     results["pyramid_down"], results["pyramid_up_rows"] = check_pyramid(device, (H, W))
     results["halation"] = check_halation(device, bundle, cfg)
     results["half_size"] = check_half_size(device, (H, W))
@@ -677,36 +1032,47 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     total = {k: launches[k] + launches_off[k] for k in KERNELS}
+
+    def add(phase_launches):
+        for k, v in phase_launches.items():
+            total[k] += v
+
+    previews = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.dng")
         t0 = time.perf_counter()
         write_dng(path, device)
         print(f"wrote {os.path.getsize(path)} bytes of DNG in {time.perf_counter() - t0!r} s")
         for name in PHASES:
-            for k, v in processor_phase(device, path, name).items():
-                total[k] += v
+            add(processor_phase(device, path, name))
+            torch.cuda.empty_cache()
+        for name in PREVIEWS:
+            phase_launches, previews[name] = preview_phase(device, path, name, card)
+            add(phase_launches)
             torch.cuda.empty_cache()
         process_timing = time_processor(device, path, card)
+    add(sep_conv_phase(device, cfg))
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was launched no time on the main paths")
     for name, r in results.items():
-        print(f"kernel {name} on {card}: {r['ms']!r} ms vs plain {r['plain_ms']!r} ms")
+        print(f"kernel {name} on {card}: {r['ms']!r} ms vs plain {r['plain_ms']!r} ms, "
+              f"bound {r['bound_ms']!r} ms ({r['bound_by']}), library {r['library_ms']!r} ms")
 
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1],
+            "source": source,
+            "replaces": replaces,
             "launches": total[name],
             **results[name],
         }
-        for name in KERNELS
+        for name, (_, source, replaces) in KERNELS.items()
     ]
     print(json.dumps({
         "kernels": kernels, "main_path": timing, "halation_off": timing_off,
-        "process": process_timing, "card": card,
+        "process": process_timing, "preview": previews, "card": card,
     }))
     print(card_line())
     print(json.dumps({

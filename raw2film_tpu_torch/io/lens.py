@@ -6,8 +6,8 @@ loading, the EXIF matching and ``lens_correction`` are a copy of that
 module, with the vignetting gain in numpy float32 instead of on the device.
 The distortion remap is the native threaded bilinear remap with scipy's
 ``map_coordinates`` as its fallback, as in the JAX package. The curated
-profiles of ``lens_db`` and ``lens_catalog`` are built with this module's
-:class:`LensProfile` through ``_reference.lens_tables``. Pinned to the JAX
+profiles are the port's copies of ``lens_db`` and ``lens_catalog``, built
+with this module's :class:`LensProfile`. Pinned to the JAX
 module by tests/test_torch_io.py.
 """
 
@@ -77,10 +77,9 @@ def _load_user_db(path: str, mtime: float) -> list[LensProfile]:
 
 @functools.lru_cache(maxsize=1)
 def _curated_tables() -> tuple[tuple, tuple]:
-    from raw2film_tpu_torch._reference import lens_tables
+    from raw2film_tpu_torch.io import lens_catalog, lens_db
 
-    curated, catalog = lens_tables(LensProfile)
-    return tuple(curated), tuple(catalog)
+    return tuple(lens_db.PROFILES), tuple(lens_catalog.catalog_profiles())
 
 
 def load_profiles(path: str | None = None) -> list[LensProfile]:
@@ -213,7 +212,7 @@ def lens_correction(img: np.ndarray, metadata: dict, profile: LensProfile | None
     out = np.asarray(img, np.float64)
     dist = profile.distortion_at(focal)
     if dist is not None:
-        from raw2film_tpu_torch._reference import native
+        from raw2film_tpu_torch import native
 
         coords = undistort_coords((h, w), profile.dist_model, dist)
         remapped = native.remap_bilinear(np.asarray(out, np.float32), coords)

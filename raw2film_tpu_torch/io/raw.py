@@ -1,7 +1,7 @@
 """RAW -> linear camera XYZ on the device: the staged decode.
 
 The counterpart of ``raw2film_tpu/io/raw.py``. The container parse stays on
-the host (``raw2film_tpu.io.dng.read_raw``, reached through ``_reference``);
+the host (``io/dng.py::read_raw``, the port's copy of the JAX package's);
 the normalize and the decode run on the device: the Bayer MHC demosaic on K1
 (without its matrix epilogue), the half-size decode on K11, the X-Trans
 masked decode on K2, or the plain normalize of non-CFA data. The camera
@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from raw2film_tpu_torch._reference import dng
+from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.ops import demosaic as dm
 
 
@@ -28,7 +28,7 @@ def calc_exposure(
 ) -> float:
     """Stops of gain that bring the image to mid-grey: the power mean of the
     2x-subsampled green plane with an EXIF-derived exponent (a copy of
-    ``raw2film_tpu.io.raw.calc_exposure``, whose module imports JAX;
+    the JAX package's ``io/raw.py::calc_exposure``, whose module imports JAX;
     ``subsampled=True``: ``xyz`` already is that plane)."""
     lum = np.asarray(xyz) if subsampled else np.asarray(xyz)[1, ::2, ::2]
     factor = 3.0

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from ``csrc/`` and bind them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds). The
-library lands in ``raw2film_tpu_torch/_build/``, named by a hash of the
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles the sources
+to objects, and one more links them into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds). The library
+lands in ``raw2film_tpu_torch/_build/``, named by a hash of the
 sources and flags, so a stale build is never loaded. It is built at first
 use, inside the process that needs it; nothing is compiled at import.
 
@@ -33,7 +34,7 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -41,8 +42,9 @@ NVCC_FLAGS = (
 # launches its kernel, and nowhere else.
 launches = {
     "demosaic": 0, "half_size": 0, "pyramid_down": 0, "sep_rank": 0,
-    "pyramid_up_rows": 0, "pyramid_up": 0, "halation": 0, "grain_apply": 0,
-    "grain_apply_bw": 0, "print_encode": 0,
+    "sep_rank_narrow": 0, "pyramid_up_rows": 0, "pyramid_up": 0, "halation": 0,
+    "grain_apply": 0, "grain_apply_bw": 0, "grain_field": 0, "conv_w": 0,
+    "conv_h": 0, "print_encode": 0,
 }
 
 _P = ctypes.c_void_p
@@ -63,6 +65,8 @@ _SIGNATURES = {
     "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),
     "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "r2f_grain_apply": (_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P),
+    "r2f_grain_field": (_P, _I, _I, _I, _U, _U, _P, _I, _P),
+    "r2f_conv1d": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
     "r2f_halation": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 
@@ -115,11 +119,27 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cus]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, cu], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cu, o in zip(cus, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    try:
+        for cu, p, log in zip(cus, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {cu} ({p.returncode}):\n{log}")
+        res = subprocess.run([_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)
     return out
 
@@ -166,10 +186,17 @@ def plain_reference():
 def use_kernel(t: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensor). False: the plain version (CPU
     tensor, or inside :func:`plain_reference`). Other devices raise."""
-    if t.device.type == "cpu":
+    return use_kernel_on(t.device)
+
+
+def use_kernel_on(device) -> bool:
+    """:func:`use_kernel` for a kernel that takes no input tensor (the grain
+    field): the device its output goes to decides."""
+    device = torch.device(device)
+    if device.type == "cpu":
         return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
     return not getattr(_mode, "plain", False)
 
 

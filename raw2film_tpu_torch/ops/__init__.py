@@ -1,3 +1,4 @@
-"""Image operations of the port; kernels K1-K3 sit behind ``demosaic``,
-``sep_rank`` and ``print_encode``, K10 and K12 behind ``pyramid``, K14
-behind ``halation``."""
+"""Image operations of the port. The kernels sit behind ``demosaic`` (K1,
+K11), ``sep_rank`` (K2, and K4 on narrow frames), ``print_encode`` (K3),
+``sep_conv`` (K5, K6), ``grain`` (K7, K8, K9), ``pyramid`` (K10, K12, K13)
+and ``halation`` (K14)."""

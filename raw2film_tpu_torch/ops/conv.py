@@ -2,8 +2,11 @@
 
 The counterpart of ``raw2film_tpu/ops/conv.py``: the host-side kernel
 builders are numpy copies of the JAX package's (that module imports JAX, so
-the port cannot import them), and the device functions are plain PyTorch.
-None of these runs a hand kernel: on the TPU they are XLA too.
+the port cannot import them), and the device functions are plain PyTorch,
+as they are XLA on the TPU. The one exception is :func:`separable_conv` with
+two 1-D kernels, which on the TPU is the Pallas kernel K2 (conv.py:150-153 of
+the JAX package) and on a CUDA tensor here the port's K2 kernel
+(``ops/sep_rank.py``) with one shared rank.
 
 Border convention: reflect-101 (numpy's and ``jnp.pad``'s "reflect").
 """
@@ -138,7 +141,14 @@ def conv1d_axis(img: torch.Tensor, k, axis: int) -> torch.Tensor:
 
 
 def separable_conv(img: torch.Tensor, kv, kh) -> torch.Tensor:
-    """1-D kernel ``kv`` down the columns, then ``kh`` along the rows."""
+    """1-D kernel ``kv`` down the columns, then ``kh`` along the rows:
+    (taps,) shared or (C, taps) per channel. Two shared kernels are one rank
+    of ``sep_rank.fused_sep_rank`` (the K2 kernel on a CUDA tensor)."""
+    kv, kh = np.asarray(kv, np.float32), np.asarray(kh, np.float32)
+    if kv.ndim == 1 and kh.ndim == 1:
+        from raw2film_tpu_torch.ops import sep_rank  # imports this module
+
+        return sep_rank.fused_sep_rank(img.contiguous(), kv[None], kh[None])
     return conv1d_axis(conv1d_axis(img, kv, -2), kh, -1)
 
 

@@ -1,5 +1,6 @@
 """Film grain: positionally stateless hash noise, its correlation, the
-density-dependent amplitude, and the grain apply without the MTF.
+density-dependent amplitude, the grain field alone, and the grain apply
+without the MTF.
 
 The counterpart of the grain parts of ``raw2film_tpu/ops/grain.py`` and
 ``raw2film_tpu/ops/pallas_grain.py``. The noise at image position (x, y) of
@@ -8,10 +9,13 @@ through PCG-3D and a popcount binomial, so any tiling reproduces the same
 field, and the kernels' grain code (``csrc/grain.cuh``, in K2's epilogue and
 in K8 and K9) matches :func:`grain_field_hash` here.
 
-:func:`grain_apply` is K8 (colour grain, ``grain_apply_pallas``) and, with
-``bw=True``, K9 (one field shared by the channels and the channel-mean
-amplitude, ``grain_apply_bw_pallas``); on a CUDA tensor it launches
-``csrc/grain.cu``, on a CPU tensor it runs :func:`grain_apply_plain`.
+:func:`grain_field` is K7 (the field alone, ``grain_field_pallas``), reached
+through :func:`generate_grain_field` and :func:`apply_grain` and by the render
+for grain modes other than 1 and 2. :func:`grain_apply` is K8 (colour grain,
+``grain_apply_pallas``) and, with ``bw=True``, K9 (one field shared by the
+channels and the channel-mean amplitude, ``grain_apply_bw_pallas``). On a
+CUDA device they launch ``csrc/grain.cu``, on the CPU they run
+:func:`grain_field_hash` and :func:`grain_apply_plain`.
 
 The grain seed is an explicit uint32 integer; a JAX ``noise_key`` maps to
 ``seed = key[0] ^ key[1]``.
@@ -28,6 +32,8 @@ import ctypes
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.device import require_cuda
+from raw2film_tpu_torch.film.grain import ISO_APERTURE_UM
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
@@ -211,3 +217,82 @@ def grain_apply(d: torch.Tensor, seed: tuple[int, int], sigma_px: float, prm: to
     kb.check(err, "r2f_grain_apply")
     kb.launches["grain_apply_bw" if bw else "grain_apply"] += 1
     return out
+
+
+# ------------------------------------------------------------ K7
+
+
+def grain_field(seed: tuple[int, int], hw: tuple[int, int], sigma_px: float, bw: bool = False,
+                device=None) -> torch.Tensor:
+    """K7 wrapper: the (3, H, W) correlated unit-variance field on
+    ``device`` (by default the first CUDA device). ``seed`` is the (seed,
+    row_off) pair of :func:`seed2`; ``bw``: one field (channel 0's)
+    broadcast to the three channels, as a view."""
+    taps = grain_corr_taps(float(sigma_px))
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"grain: {len(taps)} taps, the kernels take {MAX_TAPS}")
+    h, w = (int(v) for v in hw)
+    c = 1 if bw else 3
+    s, row_off = seed2(*seed)
+    device = torch.device(device) if device is not None else require_cuda()
+    if not kb.use_kernel_on(device):
+        field = grain_field_hash(s, (h, w), taps, row_off, device, channels=c)
+    else:
+        field = torch.empty((c, h, w), dtype=torch.float32, device=device)
+        ctaps = (ctypes.c_float * len(taps))(*taps)
+        err = kb.lib().r2f_grain_field(
+            field.data_ptr(), c, h, w, s, row_off, ctypes.cast(ctaps, ctypes.c_void_p),
+            len(taps), kb.stream_ptr(field),
+        )
+        kb.check(err, "r2f_grain_field")
+        kb.launches["grain_field"] += 1
+    return field.expand(3, h, w) if bw else field
+
+
+def generate_grain_field(key, hw: tuple[int, int], scale: float, grain_size_mm: float = 0.006,
+                         grain_sigma: float = 0.4, bw: bool = False, row_offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Unit-variance correlated grain field, planar (3, H, W): the
+    counterpart of ``raw2film_tpu/ops/grain.py::generate_grain_field``.
+    ``key`` is a (uint32, uint32) pair (a JAX key's two words, whose XOR
+    seeds the hash); the field comes from K7 on a CUDA ``device``."""
+    sigma_px = correlation_sigma_px(scale, grain_size_mm, grain_sigma)
+    seed = (int(key[0]) ^ int(key[1])) & M32
+    return grain_field(seed2(seed, row_offset), hw, sigma_px, bw=bw, device=device)
+
+
+def grain_amplitude_device(density: torch.Tensor, rms: float, d_lo: float, d_hi: float,
+                           scale: float, peak_density: float, width: float, floor: float,
+                           bw_grain: bool = False) -> torch.Tensor:
+    """The stock's grain amplitude at each density, scaled to the pixel
+    (``GrainModel.amplitude`` times the pixel rms scale); ``bw_grain``: the
+    channel mean, broadcast."""
+    rng = max(float(d_hi - d_lo), 1e-3)
+    t = (density - d_lo) / rng
+    e = (t - peak_density / rng * 0.5 - 0.25) / (width * 0.35)
+    shape = floor + (1 - floor) * fm.expe(-0.5 * (e * e))
+    pixel_um = 1000.0 / scale
+    amp = (rms / 1000.0) * shape * (ISO_APERTURE_UM / pixel_um)
+    if bw_grain:
+        amp = amp.mean(dim=0, keepdim=True).expand_as(amp)
+    return amp
+
+
+def apply_grain(density: torch.Tensor, key, stock, scale: float, grain_size_mm: float = 0.006,
+                grain_sigma: float = 0.4, bw_grain: bool = False) -> torch.Tensor:
+    """density (3, H, W) + amplitude(density) * field, clipped at 0 (the
+    counterpart of ``raw2film_tpu/ops/grain.py::apply_grain``); the field
+    comes from K7 on the density's device."""
+    gm = stock.grain
+    if gm is None:
+        return density
+    d_min, *_ = stock.curve.params()
+    lo = float(np.min(d_min))
+    hi = float(np.max(stock.curve.d_max))
+    if hi < lo:
+        lo, hi = hi, lo
+    field = generate_grain_field(key, tuple(density.shape[-2:]), scale, grain_size_mm, grain_sigma,
+                                 bw=bw_grain, device=density.device)
+    amp = grain_amplitude_device(density, gm.rms, lo, hi, scale, gm.peak_density, gm.width,
+                                 gm.floor, bw_grain=bw_grain)
+    return torch.clamp(density + amp * field, min=0.0)

@@ -31,12 +31,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.config import LOG10_EPS
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import conv as convops
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import pyramid, resize, sep_rank
 
-LOG10_EPS = 1e-6  # clip floor before log10 (raw2film_tpu.config.LOG10_EPS)
 PYR_F = 4  # the pyramid factor K14 serves
 DEVELOP_LEN = 19  # [flare, dmin*3, gamma*3, x_toe*3, x_shoulder*3, w_toe*3, w_shoulder*3]
 

@@ -127,7 +127,10 @@ def film_sharpness_grain(
 ) -> torch.Tensor:
     """MTF sharpness with the colour-grain apply as its epilogue (the
     counterpart of ``film_sharpness_grain_from_key``). ``grain_seed`` is
-    the (seed, row_off) pair of ``grain.seed2``."""
+    the (seed, row_off) pair of ``grain.seed2``. Where the TPU's K2 declines
+    the shape (narrow frames), the JAX function returns None and the TPU
+    runs the MTF on K4 and the grain on K8; the port's kernel serves every
+    shape, so it keeps the epilogue and launches once."""
     u3, v3 = mtf_taps(mtf_key, scale, sharpening_strength, sharpening_sigma, signed)
     return sep_rank.fused_sep_rank(
         img, u3, v3, grain=(grain_seed, grain_prm, grain_corr_taps(float(grain_sigma_px)))

@@ -9,6 +9,13 @@ borders, and with ``grain`` the film-grain apply max(out + amp(out) * field,
 
 The taps are used in float32 exactly as given: the TPU path's bf16 "dc" tap
 rescale is an artifact of its matrix unit and has no counterpart here.
+
+The same kernel is the counterpart of K4, ``pallas_conv2.py::fused_sep_rank``:
+the TPU's K2 declines narrow and short frames (:func:`tpu_declines`), and
+runs K4 there (or, on still smaller ones, its XLA shift-add). The kernel here
+serves every shape, so K4 needs no kernel of its own; a launch without grain
+on such a shape is counted as ``sep_rank_narrow`` (K4), any other as
+``sep_rank`` (K2).
 """
 
 from __future__ import annotations
@@ -21,6 +28,22 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops.conv import conv1d_axis
+
+
+K2_CHUNK = 512  # the TPU K2's column chunk (pallas_conv2.py:581)
+K2_TILE = 48  # its preferred row tile (pallas_conv2.py:571, _auto_tile)
+
+
+def tpu_declines(h: int, w: int, rh: int) -> bool:
+    """Whether the TPU's K2 declines an (h, w) image with column taps of
+    radius ``rh`` (pallas_conv2.py:625-627): frames at most one chunk wide,
+    and frames too short for its row tiling. The chunk is the generic
+    entry's 512 and the row tile _auto_tile's first choice, 48 (the TPU's
+    tile choosers, and the MTF's own ladder with its 256-px chunks, are not
+    ported)."""
+    th = min(max(K2_TILE, -(-rh // 8) * 8), -(-h // 8) * 8)
+    hp = -(-h // th) * th
+    return rh > th or h <= 2 * th + 1 or hp - h + th >= h or w <= K2_CHUNK
 
 
 def _ranks(taps) -> np.ndarray:
@@ -109,7 +132,8 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
         n_gtaps, kb.stream_ptr(img),
     )
     kb.check(err, "r2f_sep_rank")
-    kb.launches["sep_rank"] += 1
+    narrow = grain is None and tpu_declines(h, w, u3.shape[2] // 2)
+    kb.launches["sep_rank_narrow" if narrow else "sep_rank"] += 1
     return out
 
 

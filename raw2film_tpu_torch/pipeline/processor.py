@@ -21,8 +21,8 @@ the file's path, ``mtime_ns`` and size.
 
 Not ported here: the TPU's scoped-VMEM retry ladder and the JIT cache (the
 port compiles nothing per shape), a device mesh for ``process_batch``
-(ROADMAP.md, queue 1 item 8), the ICC output LUT (``ops/lut.py``) and chroma
-noise reduction (``ops/chroma_nr.py``), which raise NotImplementedError.
+(ROADMAP.md, queue 1 item 8) and the ICC output LUT (``ops/lut.py``), which
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,13 +34,15 @@ import os
 import numpy as np
 import torch
 
-from raw2film_tpu_torch._reference import canvas, dng, geometry, loader
-from raw2film_tpu_torch._reference import chain as fchain
-from raw2film_tpu_torch._reference import stock as stock_mod
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
+from raw2film_tpu_torch.film import chain as fchain
+from raw2film_tpu_torch.film import loader
+from raw2film_tpu_torch.film import stock as stock_mod
+from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.io import lens as lens_mod
 from raw2film_tpu_torch.io.raw import calc_exposure, raw_to_linear
 from raw2film_tpu_torch.ops.resize import resolution_scaling
+from raw2film_tpu_torch.pipeline import canvas, geometry
 from raw2film_tpu_torch.pipeline.render import (
     build_render_config,
     make_film_bundle,

@@ -3,19 +3,22 @@
 The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
 
     demosaic + input transform (K1; the staged path decodes with
-    ``io/raw.py`` and applies the input matrix in plain torch)
+    ``io/raw.py``, runs chroma NR (its blur on K2) and applies the input
+    matrix in plain torch)
     -> [halation: /4 box downsample (K10) -> small blur (K2)
         -> x4 row upsample (K12) -> ranks + lerp + combine (K14);
         or, for other frame sizes and pyramid levels, the full-res ranks
         (K2) plus per level K10 -> K2 -> K13 or the bilinear resize]
     -> development (in K14's epilogue with identity masking, else plain torch)
     -> MTF sharpness + colour grain (K2), or MTF (K2) then grain without it:
-       colour (K8) or black-and-white (K9)
-    -> [burn small map] -> print/encode (K3)
+       colour (K8), black-and-white (K9), or any other mode the field
+       alone (K7) and the add in plain torch
+    -> [burn: small map, its blur on K2] -> print/encode (K3)
 
-The plain development is PyTorch, as it is XLA on the TPU. Every branch
-whose TPU path needs a kernel that is not ported yet raises
-NotImplementedError naming that kernel; no stage is ever skipped silently.
+K2 launches on frames the TPU's K2 declines stand for K4 (``ops/sep_rank.py``).
+The plain development is PyTorch, as it is XLA on the TPU. The ICC output
+LUT raises NotImplementedError (not ported); no stage is ever skipped
+silently.
 
 Planar (3, H, W) float32 at every public function; the film parameters are
 a dict of float32 tensors (:func:`make_film_bundle`), the static choices a
@@ -29,15 +32,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.config import LOG10_EPS
+from raw2film_tpu_torch.device import require_cuda
 from raw2film_tpu_torch.ops import burn as burn_ops
+from raw2film_tpu_torch.ops.chroma_nr import chroma_nr
 from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
-
-LOG10_EPS = 1e-6  # clip floor before log10 (raw2film_tpu.config.LOG10_EPS)
 
 
 @dataclass(frozen=True)
@@ -165,10 +169,12 @@ def load_film_bundle(
     """(bundle, cfg) for a negative printed on a print stock, at h x w
     pixels on a 36 mm frame; ``params`` override the merged profile and
     image parameters (e.g. ``halation=False, grain=2, highlight_burn=0.3``).
-    The stock data comes from the JAX package through ``_reference``."""
-    from raw2film_tpu_torch._reference import chain, loader
-    from raw2film_tpu_torch._reference import params as rparams
+    The bundle lies on ``device``, by default the first CUDA device; pass
+    ``device="cpu"`` for the plain versions."""
+    from raw2film_tpu_torch.film import chain, loader
+    from raw2film_tpu_torch.pipeline import params as rparams
 
+    device = torch.device(device) if device is not None else require_cuda()
     stocks = loader.load_film_stocks()
     neg, prt = stocks[negative], stocks[print_film]
     neg_p = chain.build_negative_params(neg)
@@ -210,12 +216,6 @@ def _hd_plane(x: torch.Tensor, curve, c: int) -> torch.Tensor:
     return d_min + gamma * (fm.softplus(x - x_toe, w_t) - fm.softplus(x - x_sh, w_s))
 
 
-def _unported(what: str, kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs {kernel}, which is not ported yet (ROADMAP.md, queue 2)"
-    )
-
-
 def _develop(ep: torch.Tensor, bundle: dict) -> torch.Tensor:
     """(3, H, W) exposure -> status densities with masking (plain torch)."""
     xp = tuple(fm.log10(torch.clamp(ep[c] + bundle["flare"], min=LOG10_EPS)) for c in range(3))
@@ -236,12 +236,15 @@ def render_chain(
     """(3, H, W) float32 camera XYZ (or, with ``input_is_exposure``, the
     chain's exposure image) -> (3, H, W) uint8 encoded output."""
     if cfg.icc:
-        raise _unported("the ICC output LUT", "the CP-factored LUT apply (ops/lut.py)")
+        raise NotImplementedError(
+            "the ICC output LUT needs the CP-factored LUT apply (ops/lut.py), which is not "
+            "ported yet (ROADMAP.md, queue 1)"
+        )
     if input_is_exposure:
         ep = xyz.contiguous()  # a cropped exposure image is a strided view
     else:
         if cfg.chroma_nr:
-            raise _unported("chroma noise reduction", "ops/chroma_nr.py")
+            xyz = chroma_nr(xyz, cfg.chroma_nr)
         ep = torch.stack(
             [torch.clamp(q, min=0.0) for q in _matp(bundle["m_in"], (xyz[0], xyz[1], xyz[2]))]
         )
@@ -270,8 +273,6 @@ def render_chain(
     mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
     grain_on = bool(cfg.grain and cfg.has_grain)
     if grain_on:
-        if cfg.grain not in (1, 2):
-            raise _unported(f"grain mode {cfg.grain}", "grain_field_pallas (K7)")
         prm = grain_ops.grain_params(bundle["grain_rms"], bundle["grain_shape"], cfg.scale)
         sigma_px = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
         gseed = grain_ops.seed2(seed, grain_row_offset)
@@ -286,8 +287,15 @@ def render_chain(
             d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
             signed=cfg.mtf_signed,
         )
-    if grain_on:
+    if grain_on and cfg.grain in (1, 2):
         d = grain_ops.grain_apply(d.contiguous(), gseed, sigma_px, prm, bw=cfg.grain == 1)
+    elif grain_on:
+        # Any other mode: the colour field alone (K7), then the amplitude and
+        # the add in plain torch (render.py:354-377 of the JAX package, whose
+        # black-and-white field and channel-mean amplitude there serve grain
+        # 1 only off the TPU; here grain 1 always takes K9).
+        field = grain_ops.grain_field(gseed, tuple(d.shape[-2:]), sigma_px, device=d.device)
+        d = torch.clamp(d + grain_ops.grain_amplitude(d, prm) * field, min=0.0)
 
     burn_args = None
     if cfg.highlight_burn:
@@ -339,14 +347,14 @@ def render_chain_from_mosaic(
     ``mosaic``: (H, W) uint16 sensor codes with ``norm`` = (black,
     inv_range), normalized on the device, or float32 in [0, 1]. ``crop``:
     (y0, x0, h, w) window taken after the demosaic. ``device``: where to
-    render; by default the mosaic's device (the CPU for a numpy array)."""
+    render; by default the first CUDA device (raises without one), never
+    the CPU unless asked with ``device="cpu"``."""
     if cfg.chroma_nr != 0:
         raise ValueError(
             "render_chain_from_mosaic does not support chroma_nr; decode "
             "to XYZ and use render_chain (the staged path) instead"
         )
-    if device is None:
-        device = mosaic.device if isinstance(mosaic, torch.Tensor) else torch.device("cpu")
+    device = torch.device(device) if device is not None else require_cuda()
     mosaic = torch.as_tensor(mosaic, device=device).contiguous()
     b = bundle_to(bundle, device)
     mat = fold_input_matrix(b["m_in"], cam_to_xyz, exposure_gain)

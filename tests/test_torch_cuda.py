@@ -140,3 +140,40 @@ def test_grain_apply_kernel(cuda, bw, sigma):
     args = (d, (12345, (-7) & 0xFFFFFFFF), sigma, prm, bw)
     got = _launched("grain_apply_bw" if bw else "grain_apply", grain_ops.grain_apply, *args)
     assert (got - _plain(grain_ops.grain_apply, *args)).abs().max().item() <= 1e-5
+
+
+def test_sep_rank_narrow_kernel(cuda):
+    """K4: the K2 kernel, without grain, on a frame the TPU's K2 declines
+    (at most 512 px wide); counted as ``sep_rank_narrow``."""
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(3, 2, 3)).astype(np.float32) * 0.3
+    v = rng.normal(size=(3, 2, 3)).astype(np.float32) * 0.3
+    d = torch.rand((3, 540, 360), device=cuda) * 3.0
+    got = _launched("sep_rank_narrow", sep_rank.fused_sep_rank, d, u, v)
+    assert (got - _plain(sep_rank.fused_sep_rank, d, u, v)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["conv_w", "conv_h"])
+@pytest.mark.parametrize("n", [1, 9, 31])
+def test_conv1d_kernel(cuda, name, n):
+    """K5 / K6 on a ragged frame: bit-equal to the plain version (the same
+    multiplies and adds in the same order)."""
+    from raw2film_tpu_torch.ops import sep_conv
+
+    t = np.random.default_rng(n).uniform(-0.2, 1.0, n).astype(np.float32)
+    x = torch.rand((2, 90, 130), device=cuda)
+    got = _launched(name, getattr(sep_conv, name), x, t)
+    assert torch.equal(got, _plain(getattr(sep_conv, name), x, t))
+
+
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+def test_grain_field_kernel(cuda, bw):
+    """K7 on a ragged frame with 13 taps and a negative row offset."""
+    args = ((12345, (-7) & 0xFFFFFFFF), (70, 130), 2.3)
+    before = kb.launches["grain_field"]
+    got = grain_ops.grain_field(*args, bw=bw, device=cuda)
+    assert kb.launches["grain_field"] == before + 1
+    with kb.plain_reference():
+        ref = grain_ops.grain_field(*args, bw=bw, device=cuda)
+    assert tuple(got.shape) == (3, 70, 130)
+    assert (got - ref).abs().max().item() <= 1e-5

@@ -108,7 +108,7 @@ def test_bundle_conversion_matches_port_builder():
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_load_film_bundle_matches_graft_build(shape):
     jb, jcfg = _build(*SHAPES[shape], halation=False)
-    tb, tcfg = load_film_bundle(h=SHAPES[shape][0], w=SHAPES[shape][1], halation=False, grain=2, sharpness=True, highlight_burn=0.3)
+    tb, tcfg = load_film_bundle(h=SHAPES[shape][0], w=SHAPES[shape][1], halation=False, grain=2, sharpness=True, highlight_burn=0.3, device="cpu")
     _assert_bundles_equal(tb, jb)
     assert tcfg == convert.config_from_jax(jcfg)
     np.testing.assert_array_equal(tpack(tb).numpy(), np.asarray(jpack(jb)))
@@ -164,7 +164,7 @@ def test_config_from_jax_carries_halation():
     import dataclasses
 
     jb, jcfg = _build(5472, 8208)
-    tb, tcfg = load_film_bundle(grain=2, sharpness=True, highlight_burn=0.3)
+    tb, tcfg = load_film_bundle(grain=2, sharpness=True, highlight_burn=0.3, device="cpu")
     _assert_bundles_equal(tb, jb)
     assert tcfg == convert.config_from_jax(jcfg)
     assert (tcfg.halation, tcfg.halation_size, tcfg.bw) == (True, 1.0, False)

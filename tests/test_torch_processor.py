@@ -2,7 +2,8 @@
 within 1 code, and ``process()`` / ``process_batch()`` against the JAX
 Processor on the same synthetic DNGs within 1 code, on both paths (the
 half-size staged default, the fused full-res path, a staged full-res frame
-whose H is not a multiple of 4), with the grain branches K8 and K9. Also the
+whose H is not a multiple of 4), with the grain branches K8, K9 and K7
+(grain mode 3), chroma NR and a rotated preview-scale frame. Also the
 host pieces it relies on (the Threefry grain key, the crop windows), the
 cache keyed on the file, and the JAX PreviewEngine and BatchRunner driving
 the port Processor by injection."""
@@ -125,6 +126,9 @@ VS_JAX = {
     "rotation": (dict(half_size=False, max_scale=None, rotation=3.0), False),
     "sharpness-off": (dict(sharpness=False), False),
     "bw-grain": (dict(grain=1), False),
+    "chroma-nr": (dict(chroma_nr=3), False),
+    "grain-3": (dict(grain=3), False),
+    "portrait-preview": (dict(max_scale=15.0, rotate_times=1), False),
 }
 
 
@@ -216,8 +220,9 @@ def test_refusals(port, dngs):
         port.process_batch(dngs[:1], mesh=object(), **STOCKS)
     with pytest.raises(NotImplementedError, match="ops/lut.py"):
         port.process(dngs[0], icc_transform=object(), **STOCKS)
-    with pytest.raises(NotImplementedError, match="chroma_nr"):
-        port.process(dngs[0], chroma_nr=2, **STOCKS)
+    # chroma NR renders on the staged path (the fused path declines it)
+    assert port.process(dngs[0], chroma_nr=2, half_size=False, max_scale=None, **STOCKS).shape == (96, 144, 3)
+    assert port._mosaic_cache[0] is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Processor()

@@ -61,7 +61,8 @@ def test_render_matches_jax(case):
     )
     seed = int(np.asarray(key[0] ^ key[1]))
     got = render_chain_from_mosaic(
-        codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg), seed, norm=NORM
+        codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg), seed, norm=NORM,
+        device="cpu",
     )
     assert got.dtype == torch.uint8 and tuple(got.shape) == (3, h, w)
     diff = np.abs(got.numpy().astype(int) - ref.astype(int))
@@ -85,6 +86,7 @@ def test_crop_and_gain_match_jax():
     got = render_chain_from_mosaic(
         codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg),
         int(np.asarray(key[0] ^ key[1])), pattern="GBRG", exposure_gain=1.7, crop=crop, norm=NORM,
+        device="cpu",
     )
     assert tuple(got.shape) == (3, 96, 120)
     assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
@@ -113,13 +115,13 @@ def test_unported_branches_raise(name, monkeypatch):
     args = (_codes(*hw), REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), cfg, 0)
     if name == "icc":
         with pytest.raises(NotImplementedError, match="ops/lut.py"):
-            render_chain_from_mosaic(*args, norm=NORM)
+            render_chain_from_mosaic(*args, norm=NORM, device="cpu")
         return
     if name == "halation":
         blurs = []
         orig = thal.halation_blur
         monkeypatch.setattr(thal, "halation_blur", lambda *a: blurs.append(a[1:]) or orig(*a))
-        got = render_chain_from_mosaic(*args, norm=NORM)
+        got = render_chain_from_mosaic(*args, norm=NORM, device="cpu")
         assert blurs == [(228.0, cfg.halation_size)]
         assert got.dtype == torch.uint8 and tuple(got.shape) == (3, *hw)
         return
@@ -130,13 +132,20 @@ def test_unported_branches_raise(name, monkeypatch):
 
 
 def test_chroma_nr_is_refused():
+    """The mosaic path refuses chroma NR, as the JAX one does; the staged
+    render_chain runs it (ops/chroma_nr.py), within 1 code of JAX."""
+    from raw2film_tpu.pipeline.render import render_chain as jax_chain
+
     jb, jcfg = _build(256, 384, halation=False)
     cfg = dataclasses.replace(config_from_jax(jcfg), chroma_nr=2)
     bundle = bundle_from_numpy(_numpy_bundle(jb))
     with pytest.raises(ValueError):
-        render_chain_from_mosaic(_codes(32, 48), REC709_TO_XYZ, bundle, cfg, 0, norm=NORM)
-    with pytest.raises(NotImplementedError):
-        render_chain(torch.rand(3, 32, 48), bundle, cfg, 0)
+        render_chain_from_mosaic(_codes(32, 48), REC709_TO_XYZ, bundle, cfg, 0, norm=NORM, device="cpu")
+    xyz = np.abs(np.random.default_rng(12).normal(0.2, 0.15, (3, 32, 48))).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    ref = np.asarray(jax_chain(jnp.asarray(xyz), jb, dataclasses.replace(jcfg, chroma_nr=2), key))
+    got = render_chain(torch.from_numpy(xyz), bundle, cfg, int(np.asarray(key[0] ^ key[1])))
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
 
 
 def test_staged_render_chain_matches_jax():
@@ -195,7 +204,7 @@ def _render_both(jb, jcfg, codes, key=7):
     )
     got = render_chain_from_mosaic(
         codes, REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), config_from_jax(jcfg),
-        int(np.asarray(key[0] ^ key[1])), norm=NORM,
+        int(np.asarray(key[0] ^ key[1])), norm=NORM, device="cpu",
     )
     assert got.dtype == torch.uint8 and got.shape == ref.shape
     diff = np.abs(got.numpy().astype(int) - ref.astype(int))

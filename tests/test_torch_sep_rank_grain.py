@@ -173,3 +173,44 @@ def test_grain_apply_refuses():
         tgrain.grain_apply(torch.zeros(1, 8, 8), (0, 0), SIGMA, torch.from_numpy(PRM), bw=True)
     with pytest.raises(ValueError):
         tgrain.grain_apply(torch.zeros(3, 8, 8), (0, 0), 20.0, torch.from_numpy(PRM))
+
+
+# ------------------------------------------------------------ K7
+
+
+@pytest.mark.parametrize("sigma", [SIGMA, 0.1, 1.3], ids=["45MP", "white", "wide"])
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+def test_grain_field_matches_pallas(bw, sigma):
+    """K7's plain version against grain_field_pallas in interpret mode, on
+    an H (70) that its 64-row tile pads; the seed is the seed2 pair, passed
+    through unchanged. Black and white: one field broadcast to 3 channels."""
+    ref = np.asarray(pallas_grain.grain_field_pallas(
+        jnp.asarray([SEED, ROW_OFF], jnp.uint32), (70, 96), sigma, bw=bw, interpret=True))
+    got = tgrain.grain_field((SEED, ROW_OFF), (70, 96), sigma, bw=bw, device="cpu")
+    assert tuple(got.shape) == ref.shape == (3, 70, 96)
+    assert np.abs(got.numpy() - ref).max() <= TOL
+    if bw:
+        assert torch.equal(got[0], got[2])
+
+
+def test_generate_grain_field_and_apply_grain_match_jax():
+    """The entry points around K7: the JAX key's two words give the seed
+    (key[0] ^ key[1]); apply_grain adds the stock's amplitude times the
+    field, clipped at 0."""
+    from raw2film_tpu.film.loader import load_film_stocks as jstocks
+    from raw2film_tpu.ops import grain as jgrain
+    from raw2film_tpu_torch.film.loader import load_film_stocks as tstocks
+
+    key = jax.random.PRNGKey(21)
+    kw = dict(scale=120.0, grain_size_mm=0.006, grain_sigma=0.9)
+    ref = np.asarray(jgrain.generate_grain_field(key, (37, 50), **kw))
+    pair = tuple(int(v) for v in np.asarray(key))
+    got = tgrain.generate_grain_field(pair, (37, 50), **kw, device="cpu").numpy()
+    assert np.abs(got - ref).max() <= TOL
+    d = _density(37, 50, 5)
+    for bw in (False, True):
+        ref = np.asarray(jgrain.apply_grain(jnp.asarray(d), key, jstocks()["Kodak Portra 400"],
+                                            bw_grain=bw, **kw))
+        got = tgrain.apply_grain(torch.from_numpy(d), pair, tstocks()["Kodak Portra 400"],
+                                 bw_grain=bw, **kw).numpy()
+        assert np.abs(got - ref).max() <= TOL
