@@ -10,7 +10,9 @@
    the card, at small ragged shapes and at the shapes of the paths below,
    and times it beside its bound (the larger of its bytes over 3.35 TB/s
    and its fp32 operations over 67 TFLOP/s) and, where one PyTorch call
-   computes the same function, that call;
+   computes the same function, that call; K4 also under torch.profiler
+   (its kernel's own device time, and a failure if one call copies
+   anything from the host to the device), K13 at both pyramid levels;
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -385,13 +387,67 @@ def check_sep_rank_narrow(device) -> dict:
            TOL["sep_rank_narrow"], "burn small map 1x49x74")
     err = max_err(sep_rank.fused_sep_rank(x, u3, v3), plain(sep_rank.fused_sep_rank, x, u3, v3))
     px = 540 * 360
+    launch = lambda: sep_rank.fused_sep_rank(x, u3, v3)  # noqa: E731
+    prof = profile_calls(launch, "sep_rank_kernel", 20)
+    if prof["h2d_copies"]:
+        raise AssertionError(f"sep_rank_narrow: a launch copied to the device: {prof['h2d_copies']}")
+    print(f"  sep_rank_narrow {tuple(x.shape)} under the profiler: {prof!r}")
+    # 100 calls each: the per-call times of a launch this small swing with
+    # the host, and medians of 20 moved by half between runs
+    ms, library_ms = med(launch, 100), library_conv_ms(x, dense_kernels(u3, v3, 3), 100)
+    print(f"  sep_rank_narrow {tuple(x.shape)}: {ms!r} ms per call (CUDA events), grouped F.conv2d "
+          f"{library_ms!r} ms; kernel alone {prof['device_ms']!r} ms; wrapper on the host "
+          f"{prof['host_ms']!r} ms")
     return {
         "max_abs_err": err,
-        "ms": med(lambda: sep_rank.fused_sep_rank(x, u3, v3), 20),
+        "ms": ms,
         "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, x, u3, v3), 5),
         **bound(3 * px * 8, rank_flops(u3, v3, (540, 360))),
-        "library_ms": library_conv_ms(x, dense_kernels(u3, v3, 3), 20),
+        "library_ms": library_ms,
+        "device_ms": prof["device_ms"],
+        "host_ms": prof["host_ms"],
     }
+
+
+def profile_calls(fn, kernel: str, n: int) -> dict:
+    """One warm call under torch.profiler, checked for host-to-device
+    copies; then n calls for the kernel's own device time (ms per launch,
+    kernels whose name holds ``kernel``) and the host time of the wrapper
+    alone (ms per call, no synchronize)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    def device_rows(prof):
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total", None)
+                rows.append((e.key, e.count, e.self_cuda_time_total if t is None else t))
+        return rows
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as one:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(one)
+    if not any(kernel in key for key, _, _ in rows):
+        raise AssertionError(f"the profile of one call shows no {kernel}: {rows}")
+    h2d = [key for key, _, _ in rows if "HtoD" in key]
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as many:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    launches = sum(c for key, c, _ in device_rows(many) if kernel in key)
+    device_us = sum(t for key, _, t in device_rows(many) if kernel in key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return {"device_ms": device_us / 1e3 / max(launches, 1), "launches": launches,
+            "host_ms": host_ms, "h2d_copies": h2d}
 
 
 def check_conv1d(device, full_hw, cfg) -> tuple[dict, dict]:
@@ -607,31 +663,36 @@ def check_half_size(device, full_hw) -> dict:
 
 def check_upsample(device, full_hw) -> dict:
     """Small ragged crops, then the /4 and /8 levels of the 45 MP frame back
-    to full size (phase e's shapes); the /8 level is the one reported."""
+    to full size (phase e's shapes), each timed beside F.interpolate; the
+    /8 level is the one in the main keys, both are under ``by_factor``."""
     g = torch.Generator(device=device).manual_seed(10)
-    for shape, f, out_hw in (((3, 11, 29), 4, (41, 115)), ((2, 7, 9), 8, (50, 70)), ((1, 5, 6), 3, None)):
+    for shape, f, out_hw in (((3, 11, 29), 4, (41, 115)), ((2, 7, 9), 8, (50, 70)), ((1, 5, 6), 3, None),
+                             ((3, 40, 70), 8, (301, 557)), ((2, 45, 71), 3, (118, 209))):
         x = torch.rand(shape, generator=g, device=device) * 3.0
         expect("pyramid_up", max_err(pyramid.bilinear_upsample(x, f, out_hw),
                                      plain(pyramid.bilinear_upsample, x, f, out_hw)),
                TOL["pyramid_up"], f"f={f} {shape} -> {out_hw}")
-    result = None
+    by_factor = {}
     for f in (4, 8):
         s_ = torch.rand((3, full_hw[0] // f, full_hw[1] // f), generator=g, device=device)
         err = max_err(pyramid.bilinear_upsample(s_, f, full_hw), plain(pyramid.bilinear_upsample, s_, f, full_hw))
         expect("pyramid_up", err, TOL["pyramid_up"], f"f={f} {tuple(s_.shape)} -> {full_hw}")
         ms = med(lambda: pyramid.bilinear_upsample(s_, f, full_hw), 20)
         plain_ms = med(lambda: plain(pyramid.bilinear_upsample, s_, f, full_hw), 5)
-        print(f"  pyramid_up f={f} {tuple(s_.shape)} -> {full_hw}: {ms!r} ms vs plain {plain_ms!r} ms")
+        library_ms = med(lambda: F.interpolate(
+            s_[None], size=(s_.shape[1] * f, s_.shape[2] * f), mode="bilinear",
+            align_corners=False)[..., : full_hw[0], : full_hw[1]], 20)
         out_numel = 3 * full_hw[0] * full_hw[1]
-        result = {
+        by_factor[str(f)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             # the level in, the full frame out; a 2-D lerp (6 FLOPs) per output
             **bound(4 * (s_.numel() + out_numel), 6 * out_numel),
-            "library_ms": med(lambda: F.interpolate(
-                s_[None], size=(s_.shape[1] * f, s_.shape[2] * f), mode="bilinear",
-                align_corners=False)[..., : full_hw[0], : full_hw[1]], 20),
+            "library_ms": library_ms,
         }
-    return result
+        print(f"  pyramid_up f={f} {tuple(s_.shape)} -> {full_hw}: {ms!r} ms vs plain {plain_ms!r} ms, "
+              f"F.interpolate {library_ms!r} ms, bound {by_factor[str(f)]['bound_ms']!r} ms")
+        del s_
+    return {**by_factor["8"], "by_factor": by_factor}
 
 
 def check_grain_apply(device, full_hw, cfg) -> tuple[dict, dict]:

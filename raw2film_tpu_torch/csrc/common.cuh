@@ -27,6 +27,7 @@ constexpr float LN_2 = 0x1.62e430p-1f;
 // Source index of position i on a length-n axis extended by reflect-101;
 // pads longer than the axis reflect again (numpy's "reflect").
 __device__ __forceinline__ int reflect101(int i, int n) {
+  if (static_cast<unsigned>(i) < static_cast<unsigned>(n)) return i;  // inside: no modulo
   if (n == 1) return 0;
   const int period = 2 * (n - 1);
   i %= period;

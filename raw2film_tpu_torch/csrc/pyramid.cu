@@ -18,20 +18,63 @@
 //
 // K13 upsample replaces pallas_pyramid.py::bilinear_upsample_pallas: the
 // 2-D x f half-pixel lerp with edge clamp, cropped to (oh, ow), for any
-// integer f. The TPU runs it as Uh @ window @ Uw with lerp band matrices per
-// chunk; here each output lerps the rows first, then the two row results
-// along the columns (the order of Uh @ win @ Uw), with the K12 weights on
-// both axes.
+// integer f up to UP_MAX_F. The TPU runs it as Uh @ window @ Uw with lerp
+// band matrices per chunk; here each output lerps the rows first, then the
+// two row results along the columns (the order of Uh @ win @ Uw), with the
+// K12 weights on both axes. Where the clamp folds both taps onto one
+// sample, the first weight is their float32 sum and the second 0, as in
+// the lerp matrix.
 //
 // Bound on the H100: device memory, all three. At 45 MP K10 reads 540 MB and
 // writes 34 MB; K12 reads 34 MB (each input row serves 2f output rows, from
 // L2) and writes 135 MB. One thread per output, consecutive threads on
 // consecutive output columns, so every warp's loads are one contiguous run
 // of each input row. K13 reads 1/f^2 of what it writes (from L2) and writes
-// 540 MB at 45 MP.
+// 540 MB at 45 MP: its stores are the bound.
+//
+// K13's design: the f phase weights and offsets come by value in the launch
+// (Phases, built once per f on the host in float64 and rounded to float32,
+// as ops/pyramid.py::lerp_taps builds them), so no output divides in double
+// precision. A thread owns UP_RUN = 4 consecutive output columns and works
+// out their column taps once; it then walks UP_RPT consecutive rows (a
+// warp's threads share their rows, so the row taps are a broadcast),
+// stepping the row phase by increments instead of a division, and reloads
+// its 16 input values only where the row pair changes (once per f/2 rows
+// at f >= 2 away from the edges). Each run of 4 goes out as one 16-byte
+// streaming store (__stcs: the output is ten times the L2), or as 4 scalar
+// ones where ow % 4 != 0. The reads, 1/f^2 of the writes, are served by L1
+// and L2. So each output costs about 3 FMAs and a quarter of a store.
 #include "common.cuh"
 
+namespace r2f {
+
+constexpr int UP_MAX_F = 64;
+constexpr int UP_RUN = 4;     // output columns per thread
+constexpr int UP_BX = 32;     // blockDim.x: a warp's threads share their rows
+constexpr int UP_BY = 8;      // blockDim.y
+constexpr int UP_RPT = 8;     // consecutive output rows per thread
+
+// The x f lerp's phases: output o = q f + m reads input q + base[m] with
+// weight w0[m] and q + base[m] + 1 with w1[m] (before the edge clamp).
+struct Phases {
+  int f;
+  int base[UP_MAX_F];
+  float w0[UP_MAX_F];
+  float w1[UP_MAX_F];
+};
+static_assert(sizeof(Phases) == 4 + 12 * UP_MAX_F, "Phases: the layout ops/pyramid.py packs");
+
+}  // namespace r2f
+
 namespace {
+
+using r2f::Phases;
+using r2f::UP_BX;
+using r2f::UP_BY;
+using r2f::UP_MAX_F;
+using r2f::UP_RPT;
+using r2f::UP_RUN;
+
 
 __global__ void box_downsample_kernel(const float* __restrict__ img,
                                       float* __restrict__ out, int H, int W,
@@ -72,48 +115,103 @@ __global__ void upsample_rows_kernel(const float* __restrict__ img,
       w0 * src[static_cast<size_t>(r0) * w] + w1 * src[static_cast<size_t>(r1) * w];
 }
 
-// Half-pixel x f lerp taps of output o on a length-n input axis, clamped.
-__device__ __forceinline__ void lerp_tap(int o, int f, int n, int& i0, int& i1, float& w0,
-                                         float& w1) {
-  const int m = o % f;
-  const double rel = (m + 0.5) / f - 0.5;
-  const double base = floor(rel);
-  const double frac = rel - base;
-  const int b = o / f + static_cast<int>(base);
+// Taps of output o on a length-n input axis, clamped and folded.
+__device__ __forceinline__ void phase_taps(const Phases& p, int o, int n, int& i0, int& i1,
+                                           float& w0, float& w1) {
+  const int q = o / p.f;
+  const int m = o - q * p.f;
+  const int b = q + p.base[m];
   i0 = min(max(b, 0), n - 1);
   i1 = min(max(b + 1, 0), n - 1);
-  w0 = static_cast<float>(1.0 - frac);
-  w1 = static_cast<float>(frac);
+  w0 = p.w0[m];
+  w1 = p.w1[m];
+  if (i0 == i1) {
+    w0 = w0 + w1;
+    w1 = 0.0f;
+  }
 }
 
-__global__ void upsample_kernel(const float* __restrict__ img, float* __restrict__ out,
-                                int h, int w, int f, int oh, int ow) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(UP_BX * UP_BY)
+    upsample_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
+                    int oh, int ow, const __grid_constant__ Phases p) {
+  const int x0 = static_cast<int>(blockIdx.x * UP_BX + threadIdx.x) * UP_RUN;
+  const int y0 = static_cast<int>(blockIdx.y * UP_BY + threadIdx.y) * UP_RPT;
+  if (x0 >= ow || y0 >= oh) return;
   const int c = blockIdx.z;
-  if (x >= ow || y >= oh) return;
-  int r0, r1, c0, c1;
-  float wr0, wr1, wc0, wc1;
-  lerp_tap(y, f, h, r0, r1, wr0, wr1);
-  lerp_tap(x, f, w, c0, c1, wc0, wc1);
+  int c0[UP_RUN], c1[UP_RUN];
+  float wc0[UP_RUN], wc1[UP_RUN];
+#pragma unroll
+  for (int k = 0; k < UP_RUN; ++k)
+    phase_taps(p, min(x0 + k, ow - 1), w, c0[k], c1[k], wc0[k], wc1[k]);
   const float* src = img + static_cast<size_t>(c) * h * w;
-  const float* a = src + static_cast<size_t>(r0) * w;
-  const float* b = src + static_cast<size_t>(r1) * w;
-  const float t0 = wr0 * a[c0] + wr1 * b[c0];
-  const float t1 = wr0 * a[c1] + wr1 * b[c1];
-  out[(static_cast<size_t>(c) * oh + y) * ow + x] = wc0 * t0 + wc1 * t1;
+  float* dst = out + static_cast<size_t>(c) * oh * ow + x0;
+  const bool vec = (ow & 3) == 0;
+  const int y_end = min(oh, y0 + UP_RPT);
+  int q = y0 / p.f;
+  int m = y0 - q * p.f;
+  int pr0 = -1, pr1 = -1;
+  float a0[UP_RUN], a1[UP_RUN], b0[UP_RUN], b1[UP_RUN];  // rows r0, r1 at columns c0, c1
+  for (int y = y0; y < y_end; ++y) {
+    const int b = q + p.base[m];
+    const int r0 = min(max(b, 0), h - 1);
+    const int r1 = min(max(b + 1, 0), h - 1);
+    float wr0 = p.w0[m];
+    float wr1 = p.w1[m];
+    if (r0 == r1) {
+      wr0 = wr0 + wr1;
+      wr1 = 0.0f;
+    }
+    if (r0 != pr0 || r1 != pr1) {
+      const float* ra = src + static_cast<size_t>(r0) * w;
+      const float* rb = src + static_cast<size_t>(r1) * w;
+#pragma unroll
+      for (int k = 0; k < UP_RUN; ++k) {
+        a0[k] = ra[c0[k]];
+        a1[k] = ra[c1[k]];
+        b0[k] = rb[c0[k]];
+        b1[k] = rb[c1[k]];
+      }
+      pr0 = r0;
+      pr1 = r1;
+    }
+    float v[UP_RUN];
+#pragma unroll
+    for (int k = 0; k < UP_RUN; ++k) {
+      const float t0 = wr0 * a0[k] + wr1 * b0[k];
+      const float t1 = wr0 * a1[k] + wr1 * b1[k];
+      v[k] = wc0[k] * t0 + wc1[k] * t1;
+    }
+    float* o = dst + static_cast<size_t>(y) * ow;
+    if (vec) {
+      __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < UP_RUN; ++k)
+        if (x0 + k < ow) __stcs(o + k, v[k]);
+    }
+    if (++m == p.f) {
+      m = 0;
+      ++q;
+    }
+  }
 }
 
 }  // namespace
 
-// img: (C, h, w) float32; out: (C, oh, ow) float32, oh <= h f, ow <= w f.
-R2F_API int r2f_upsample(const float* img, float* out, int C, int h, int w, int f,
-                         int oh, int ow, void* stream) {
-  if (f < 1 || oh > h * f || ow > w * f) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(64, 4);
-  const dim3 grid((ow + 63) / 64, (oh + 3) / 4, C);
-  upsample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, out, h, w, f, oh, ow);
+// img: (C, h, w) float32; out: (C, oh, ow) float32, oh <= h f, ow <= w f,
+// allocated whole (16-byte aligned rows when ow % 4 == 0); phases: the
+// host-built table for f.
+R2F_API int r2f_upsample(const float* img, float* out, int C, int h, int w, int oh, int ow,
+                         const Phases* phases, void* stream) {
+  const int f = phases->f;
+  if (f < 1 || f > UP_MAX_F || oh < 1 || ow < 1 || oh > h * f || ow > w * f ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(UP_BX, UP_BY);
+  const dim3 grid((ow + UP_BX * UP_RUN - 1) / (UP_BX * UP_RUN),
+                  (oh + UP_BY * UP_RPT - 1) / (UP_BY * UP_RPT), C);
+  upsample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(img, out, h, w, oh, ow,
+                                                                         *phases);
   return static_cast<int>(cudaGetLastError());
 }
 

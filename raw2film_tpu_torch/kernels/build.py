@@ -54,16 +54,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "r2f_half_size": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    "r2f_sep_rank": (
-        _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P,
-    ),
+    "r2f_sep_rank": (_P, _P, _P, _P, _P, _P, _P),
     "r2f_hash_words": (_P, _P, _I, _I, _I, _I, _I, _U, _U, _P),
     "r2f_print_encode": (
         _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "r2f_box_downsample": (_P, _P, _I, _I, _I, _I, _F, _P),
     "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r2f_grain_apply": (_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P),
     "r2f_grain_field": (_P, _I, _I, _I, _U, _U, _P, _I, _P),
     "r2f_conv1d": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
@@ -147,6 +145,8 @@ def build() -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -167,7 +167,12 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device. PyTorch's own
+    raw query (the one its generated kernels use) costs a fraction of
+    ``torch.cuda.current_stream(...).cuda_stream``, which builds a Stream
+    object on every call: on a small launch that was a quarter of the
+    wrapper's host time."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 @contextlib.contextmanager
@@ -186,7 +191,11 @@ def plain_reference():
 def use_kernel(t: torch.Tensor) -> bool:
     """True: launch the kernel (CUDA tensor). False: the plain version (CPU
     tensor, or inside :func:`plain_reference`). Other devices raise."""
-    return use_kernel_on(t.device)
+    if t.is_cuda:
+        return not getattr(_mode, "plain", False)
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def use_kernel_on(device) -> bool:
@@ -202,15 +211,18 @@ def use_kernel_on(device) -> bool:
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
     """Check what a kernel takes: dtype, shape, contiguity, device."""
+    if (t.dtype is dtype and shape is None and t.is_cuda and t.is_contiguous()
+            and t.get_device() == torch._C._cuda_getDevice()):
+        return  # the common case, in few steps: small launches feel every microsecond
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: on {t.device}, want a CUDA device")
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"{name}: on {t.device}, but the current device is cuda:{torch.cuda.current_device()}"
-        )
+    device = t.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: on {device}, want a CUDA device")
+    current = torch._C._cuda_getDevice()  # CUDA is up: t lives there
+    if device.index != current:
+        raise ValueError(f"{name}: on {device}, but the current device is cuda:{current}")

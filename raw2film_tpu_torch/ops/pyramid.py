@@ -19,6 +19,7 @@ tensor it runs its plain version.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -138,6 +139,39 @@ def bilinear_upsample_plain(img: torch.Tensor, f: int, out_hw: tuple[int, int]) 
     return torch.matmul(rows, uw)
 
 
+UP_MAX_F = 64  # csrc/pyramid.cu UP_MAX_F
+
+
+class Phases(ctypes.Structure):
+    """``r2f::Phases`` (csrc/pyramid.cu): output o = q f + m of a x f lerp
+    reads input q + base[m] with weight w0[m] and q + base[m] + 1 with
+    w1[m], before the edge clamp."""
+
+    _fields_ = [
+        ("f", ctypes.c_int),
+        ("base", ctypes.c_int * UP_MAX_F),
+        ("w0", ctypes.c_float * UP_MAX_F),
+        ("w1", ctypes.c_float * UP_MAX_F),
+    ]
+
+
+@lru_cache(maxsize=16)
+def phases(f: int) -> Phases:
+    """K13's phase table for factor f: the weights of :func:`lerp_taps`,
+    taken in float64 per phase and rounded to float32 (cached, read-only
+    by convention: the kernel gets a copy at each launch)."""
+    if not 1 <= f <= UP_MAX_F:
+        raise ValueError(f"upsample: factor {f}, the kernel takes 1 to {UP_MAX_F}")
+    rel = (np.arange(f, dtype=np.float64) + 0.5) / f - 0.5
+    base = np.floor(rel)
+    frac = rel - base
+    p = Phases(f=f)
+    p.base[:f] = base.astype(np.int32).tolist()
+    p.w0[:f] = (1.0 - frac).astype(np.float32).tolist()
+    p.w1[:f] = frac.astype(np.float32).tolist()
+    return p
+
+
 def bilinear_upsample(img: torch.Tensor, f: int, out_hw: tuple[int, int] | None = None) -> torch.Tensor:
     """K13 wrapper: (C, h, w) float32 -> (C, oh, ow), oh <= h * f and
     ow <= w * f (default: the whole x f image)."""
@@ -153,8 +187,11 @@ def bilinear_upsample(img: torch.Tensor, f: int, out_hw: tuple[int, int] | None 
     if not kb.use_kernel(img):
         return bilinear_upsample_plain(img, f, (oh, ow))
     kb.require(img, "img", torch.float32)
+    table = phases(f)
     out = torch.empty((c, oh, ow), dtype=torch.float32, device=img.device)
-    err = kb.lib().r2f_upsample(img.data_ptr(), out.data_ptr(), c, hs, ws, f, oh, ow, kb.stream_ptr(img))
+    err = kb.lib().r2f_upsample(
+        img.data_ptr(), out.data_ptr(), c, hs, ws, oh, ow, ctypes.byref(table), kb.stream_ptr(img)
+    )
     kb.check(err, "r2f_upsample")
     kb.launches["pyramid_up"] += 1
     return out

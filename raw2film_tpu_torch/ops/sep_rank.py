@@ -16,11 +16,22 @@ runs K4 there (or, on still smaller ones, its XLA shift-add). The kernel here
 serves every shape, so K4 needs no kernel of its own; a launch without grain
 on such a shape is counted as ``sep_rank_narrow`` (K4), any other as
 ``sep_rank`` (K2).
+
+The taps reach the kernel by value: :func:`pack` lays a stack out as the
+``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``, once per distinct
+stack, cached by the taps' contents (callers such as the burn blur rebuild
+equal taps on every call), and a launch passes a pointer to it, so no
+launch copies anything to the device. A stack above the struct's
+:data:`MAX_TAPS` floats is uploaded once to a device buffer, cached the
+same way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -32,6 +43,76 @@ from raw2film_tpu_torch.ops.conv import conv1d_axis
 
 K2_CHUNK = 512  # the TPU K2's column chunk (pallas_conv2.py:581)
 K2_TILE = 48  # its preferred row tile (pallas_conv2.py:571, _auto_tile)
+MAX_C = 4  # r2f::sep::MAX_C: per-channel stacks of at most 4 channels
+MAX_TAPS = 2048  # r2f::sep::MAX_TAPS: floats of taps passed by value
+CACHE_SIZE = 64  # packed stacks (and device buffers) kept
+
+
+class Ranks(ctypes.Structure):
+    """``r2f::sep::Ranks`` (csrc/sep_rank.cuh): the image shape and the
+    rank stack of one launch."""
+
+    _fields_ = [
+        ("C", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("nrank", ctypes.c_int * MAX_C),
+        ("per_channel", ctypes.c_int),
+        ("R", ctypes.c_int),
+        ("KV", ctypes.c_int),
+        ("KH", ctypes.c_int),
+        ("taps", ctypes.c_float * MAX_TAPS),
+    ]
+
+
+class GrainArgs(ctypes.Structure):
+    """``r2f::grain::Args`` (csrc/grain.cuh): the seed pair and the
+    correlation taps of the grain epilogue."""
+
+    _fields_ = [
+        ("seed", ctypes.c_uint32),
+        ("row_off", ctypes.c_uint32),
+        ("ntaps", ctypes.c_int),
+        ("taps", ctypes.c_float * grain_ops.MAX_TAPS),
+    ]
+
+
+@dataclass(frozen=True)
+class Packed:
+    """A rank stack as the kernel reads it: ``taps`` (Cb, R, KV + KH)
+    float32, column taps then row taps per rank; ``nrank`` (Cb,) the ranks
+    run per channel; ``args`` the by-value struct, its taps filled only when
+    ``by_value``, and ``args_ptr`` its address; ``narrow``: whether the
+    TPU's K2 declines this stack on the image shape it was packed for."""
+
+    taps: np.ndarray
+    nrank: np.ndarray
+    args: Ranks
+    args_ptr: int
+    by_value: bool
+    narrow: bool
+    key: Any
+
+
+_cache_lock = threading.Lock()
+_packed: dict = {}
+_device_taps: dict = {}
+
+
+def _remember(cache: dict, key, value):
+    with _cache_lock:
+        if len(cache) >= CACHE_SIZE:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+    return value
+
+
+def taps_key(t):
+    """A content key of a tap argument: arrays by dtype, shape and bytes,
+    sequences element by element."""
+    if isinstance(t, np.ndarray):
+        return (t.dtype, t.shape, t.tobytes())
+    return tuple(taps_key(np.asarray(r)) for r in t)
 
 
 def tpu_declines(h: int, w: int, rh: int) -> bool:
@@ -90,6 +171,47 @@ def fused_sep_rank_plain(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     return out
 
 
+def pack(u, v, c: int, h: int, w: int) -> Packed:
+    """The kernel's form of the stack (u, v) for a (c, h, w) image, cached
+    by the taps' contents and the image shape."""
+    key = (taps_key(u), taps_key(v), c, h, w)
+    hit = _packed.get(key)
+    if hit is not None:
+        return hit
+    u3, v3 = _stack(u, v)
+    cb, r, kv = u3.shape
+    if cb not in (1, c):
+        raise ValueError(f"taps for {cb} channels, image has {c}")
+    if cb > MAX_C:
+        raise ValueError(f"per-channel taps for {cb} channels, the kernel takes {MAX_C}")
+    nonzero = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
+    nrank = np.array(
+        [int(np.nonzero(row)[0].max()) + 1 if row.any() else 0 for row in nonzero],
+        np.int32,
+    )
+    taps = np.ascontiguousarray(np.concatenate([u3, v3], axis=2))
+    taps.setflags(write=False)
+    args = Ranks(C=c, H=h, W=w, per_channel=int(cb > 1), R=r, KV=kv, KH=v3.shape[2])
+    args.nrank[:cb] = nrank.tolist()
+    by_value = taps.size <= MAX_TAPS
+    if by_value:
+        ctypes.memmove(args.taps, taps.ctypes.data, taps.nbytes)
+    narrow = tpu_declines(h, w, kv // 2)
+    return _remember(
+        _packed, key, Packed(taps, nrank, args, ctypes.addressof(args), by_value, narrow, key[:2])
+    )
+
+
+def device_taps(p: Packed, device) -> torch.Tensor:
+    """The device buffer of a stack above :data:`MAX_TAPS`, uploaded once
+    per stack and device."""
+    key = (p.key, str(torch.device(device)))
+    hit = _device_taps.get(key)
+    if hit is not None:
+        return hit
+    return _remember(_device_taps, key, torch.as_tensor(p.taps.copy(), device=device))
+
+
 def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     """K2 wrapper. img (C, H, W) float32; u, v numpy (R, k) shared or
     (C, R, k) per channel, or lists of shared rank rows of odd, possibly
@@ -97,24 +219,14 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     if not kb.use_kernel(img):
         return fused_sep_rank_plain(img, u, v, grain)
     kb.require(img, "img", torch.float32)
-    if img.dim() != 3:
-        raise ValueError(f"img: want (C, H, W), got {tuple(img.shape)}")
-    c, h, w = img.shape
-    u3, v3 = _stack(u, v)
-    cb = u3.shape[0]
-    if cb not in (1, c):
-        raise ValueError(f"taps for {cb} channels, image has {c}")
-    nonzero = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
-    nrank = np.array(
-        [int(np.nonzero(row)[0].max()) + 1 if row.any() else 0 for row in nonzero],
-        np.int32,
-    )
-    taps = torch.as_tensor(np.concatenate([u3, v3], axis=2), device=img.device)
-    nrank_t = torch.as_tensor(nrank, device=img.device)
+    shape = img.shape
+    if len(shape) != 3:
+        raise ValueError(f"img: want (C, H, W), got {tuple(shape)}")
+    c, h, w = shape
+    p = pack(u, v, c, h, w)
+    dtaps = None if p.by_value else device_taps(p, img.device).data_ptr()
     out = torch.empty_like(img)
-    seed = row_off = 0
-    prm_ptr = None
-    gtaps, n_gtaps = None, 0
+    gargs = prm_ptr = None
     if grain is not None:
         (seed, row_off), prm, gt = grain
         if len(gt) > grain_ops.MAX_TAPS:
@@ -122,18 +234,13 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
         prm = prm.to(device=img.device, dtype=torch.float32).contiguous()
         kb.require(prm, "grain prm", torch.float32, (6,))
         prm_ptr = prm.data_ptr()
-        n_gtaps = len(gt)
-        gtaps = (ctypes.c_float * n_gtaps)(*[float(t) for t in gt])
+        gargs = ctypes.byref(GrainArgs(seed, row_off, len(gt), tuple(float(t) for t in gt)))
     err = kb.lib().r2f_sep_rank(
-        img.data_ptr(), out.data_ptr(), c, h, w, taps.data_ptr(), nrank_t.data_ptr(),
-        int(cb > 1), u3.shape[1], u3.shape[2], v3.shape[2], int(grain is not None),
-        seed, row_off, prm_ptr,
-        ctypes.cast(gtaps, ctypes.c_void_p) if gtaps is not None else None,
-        n_gtaps, kb.stream_ptr(img),
+        img.data_ptr(), out.data_ptr(), p.args_ptr, dtaps, gargs, prm_ptr, kb.stream_ptr(img)
     )
-    kb.check(err, "r2f_sep_rank")
-    narrow = grain is None and tpu_declines(h, w, u3.shape[2] // 2)
-    kb.launches["sep_rank_narrow" if narrow else "sep_rank"] += 1
+    if err:
+        kb.check(err, "r2f_sep_rank")
+    kb.launches["sep_rank_narrow" if grain is None and p.narrow else "sep_rank"] += 1
     return out
 
 

@@ -153,6 +153,65 @@ def test_sep_rank_narrow_kernel(cuda):
     assert (got - _plain(sep_rank.fused_sep_rank, d, u, v)).abs().max().item() <= 1e-5
 
 
+def _k4_stacks():
+    """K4's stacks: the preview's per-channel MTF (540 x 360 portrait at
+    15 px/mm), the burn's Gaussian on its 1 x 49 x 74 small map, and 9
+    shared ranks of 121 taps, above what the launch carries by value."""
+    from raw2film_tpu_torch.ops import mtf as mtf_ops
+    from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
+    from raw2film_tpu_torch import load_film_bundle
+
+    _, cfg15 = load_film_bundle(h=540, w=360, device="cpu", grain=2, sharpness=True)
+    u3, v3 = mtf_ops.mtf_taps(cfg15.mtf_key, cfg15.scale)
+    k = gaussian_kernel1d(3.0, truncate=2.0)[None]
+    rng = np.random.default_rng(9)
+    big = (rng.normal(size=(2, 9, 121)) * 0.02).astype(np.float32)
+    return {
+        "preview-mtf": (u3, v3, (3, 540, 360)),
+        "burn": (k, k, (1, 49, 74)),
+        "above-capacity": (big[0], big[1], (3, 300, 200)),
+    }
+
+
+@pytest.mark.parametrize("name", ["preview-mtf", "burn", "above-capacity"])
+def test_sep_rank_narrow_stacks(cuda, name):
+    u, v, shape = _k4_stacks()[name]
+    assert sep_rank.pack(u, v, *shape).by_value == (name != "above-capacity")
+    d = torch.rand(shape, device=cuda) * 3.0
+    for _ in range(2):  # the second launch finds the packed stack (and buffer) cached
+        got = _launched("sep_rank_narrow", sep_rank.fused_sep_rank, d, u, v)
+        assert (got - _plain(sep_rank.fused_sep_rank, d, u, v)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 540, 360), (3, 300, 200)], ids=["by-value", "buffer"])
+def test_sep_rank_stacks_of_one_shape_differ(cuda, shape):
+    """Two stacks of the same shape launched in a row give their own
+    results: the packed-stack cache is keyed by the taps' contents."""
+    rng = np.random.default_rng(2)
+    r, k = (2, 3) if shape[1] == 540 else (9, 121)
+    u = (rng.normal(size=(2, r, k)) * 0.05).astype(np.float32)
+    v = (rng.normal(size=(2, r, k)) * 0.05).astype(np.float32)
+    d = torch.rand(shape, device=cuda) * 3.0
+    a = sep_rank.fused_sep_rank(d, u[0], v[0])
+    b = sep_rank.fused_sep_rank(d, u[1].copy(), v[0].copy())
+    assert (a - _plain(sep_rank.fused_sep_rank, d, u[0], v[0])).abs().max().item() <= 1e-5
+    assert (b - _plain(sep_rank.fused_sep_rank, d, u[1], v[0])).abs().max().item() <= 1e-5
+    assert (a - b).abs().max().item() > 1e-3
+
+
+@pytest.mark.parametrize(
+    "shape,f,out_hw",
+    [((3, 40, 70), 8, (301, 557)), ((3, 40, 70), 8, None), ((2, 45, 71), 3, (118, 209)),
+     ((3, 37, 53), 4, None), ((1, 30, 41), 4, (117, 163))],
+)
+def test_upsample_kernel_runs(cuda, shape, f, out_hw):
+    """K13 over several row and column blocks: a crop whose width is not a
+    multiple of 4 (scalar stores), whole frames (16-byte stores), f = 3."""
+    x = torch.rand(shape, device=cuda) * 3.0
+    got = _launched("pyramid_up", pyramid.bilinear_upsample, x, f, out_hw)
+    assert (got - _plain(pyramid.bilinear_upsample, x, f, out_hw)).abs().max().item() <= 2e-6
+
+
 @pytest.mark.parametrize("name", ["conv_w", "conv_h"])
 @pytest.mark.parametrize("n", [1, 9, 31])
 def test_conv1d_kernel(cuda, name, n):
