@@ -10,9 +10,11 @@
    the card, at small ragged shapes and at the shapes of the paths below,
    and times it beside its bound (the larger of its bytes over 3.35 TB/s
    and its fp32 operations over 67 TFLOP/s) and, where one PyTorch call
-   computes the same function, that call; K4 also under torch.profiler
-   (its kernel's own device time, and a failure if one call copies
-   anything from the host to the device), K13 at both pyramid levels;
+   computes the same function, that call; K4 and K14 also under
+   torch.profiler (the kernel's own device time, and a failure if one call
+   copies anything from the host to the device), K10 on both its paths and
+   timed in turns with F.avg_pool2d, K13 at both pyramid levels, K14 at the
+   45 MP and 24 MP frames;
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -546,13 +548,46 @@ def check_print_encode(device, full_hw, bundle, cfg) -> dict:
     }
 
 
+def in_turns(fns: dict, rounds: int, per: int) -> dict:
+    """ms per call of each function, timed in turns (a, b, a, b, ...) so
+    that clock and power drift fall on all of them alike: each turn queues
+    one untimed call, then a CUDA event pair around ``per`` more, so the
+    device is busy when the first event is recorded and no timed call waits
+    for its launch; the median over ``rounds`` turns."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            fn()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(per):
+                fn()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b) / per)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def check_pyramid(device, full_hw) -> tuple[dict, dict]:
+    """K10 on both paths (the 16-byte one: f = 4 or 8, W a multiple of 4,
+    the input aligned; the one-thread-per-output one: W % 4 != 0, f = 3 or
+    12, and a contiguous view 4 bytes into its storage), then at 45 MP,
+    timed in turns with F.avg_pool2d; K12 at small crops and at 45 MP."""
     g = torch.Generator(device=device).manual_seed(7)
-    for shape, f in (((3, 37, 53), 3), ((3, 38, 55), 4), ((2, 9, 9), 4), ((1, 40, 64), 1)):
+    for shape, f in (((3, 37, 53), 3), ((3, 38, 55), 4), ((2, 9, 9), 4), ((1, 40, 64), 1), ((3, 38, 260), 4),
+                     ((3, 37, 252), 4), ((2, 45, 136), 8), ((1, 50, 96), 12)):
         x = torch.rand(shape, generator=g, device=device) * 3.0
+        vec = pyramid.box_vec_path(f, shape[2], x.data_ptr())
         expect("pyramid_down", max_err(pyramid.box_downsample_pyramid(x, f),
                                        plain(pyramid.box_downsample_pyramid, x, f)),
-               TOL["pyramid_down"], f"f={f} {shape}")
+               TOL["pyramid_down"], f"f={f} {shape} ({'16-byte' if vec else 'scalar'} path)")
+    base = torch.rand(3 * 40 * 64 + 1, generator=g, device=device) * 3.0
+    x = base[1:].view(3, 40, 64)  # contiguous, 4 bytes past a 16-byte boundary
+    if pyramid.box_vec_path(4, 64, x.data_ptr()):
+        raise AssertionError("an unaligned view should take the scalar path")
+    expect("pyramid_down", max_err(pyramid.box_downsample_pyramid(x, 4), plain(pyramid.box_downsample_pyramid, x, 4)),
+           TOL["pyramid_down"], "f=4 (3, 40, 64) unaligned view (scalar path)")
     for shape, f, oh in (((3, 11, 29), 4, 41), ((3, 11, 29), 4, None), ((2, 7, 30), 3, 20)):
         x = torch.rand(shape, generator=g, device=device) * 3.0
         expect("pyramid_up_rows", max_err(pyramid.bilinear_upsample_rows(x, f, oh),
@@ -560,14 +595,33 @@ def check_pyramid(device, full_hw) -> tuple[dict, dict]:
                TOL["pyramid_up_rows"], f"f={f} oh={oh} {shape}")
     h, w = full_hw
     x = torch.rand((3, h, w), generator=g, device=device) * 3.0
+    if not pyramid.box_vec_path(4, w, x.data_ptr()):
+        raise AssertionError("the 45 MP frame should take K10's 16-byte path")
     err = max_err(pyramid.box_downsample_pyramid(x, 4), plain(pyramid.box_downsample_pyramid, x, 4))
-    expect("pyramid_down", err, TOL["pyramid_down"], f"f=4 3x{h}x{w}")
+    expect("pyramid_down", err, TOL["pyramid_down"], f"f=4 3x{h}x{w} (16-byte path)")
+    # kernel, call, kernel, call: the two were within one run's spread
+    turns = in_turns({"kernel": lambda: pyramid.box_downsample_pyramid(x, 4),
+                      "avg_pool2d": lambda: F.avg_pool2d(x[None], 4)}, 20, 5)
+    one_call = {"kernel": med(lambda: pyramid.box_downsample_pyramid(x, 4), 20),
+                "avg_pool2d": med(lambda: F.avg_pool2d(x[None], 4), 20)}
+    x8 = torch.rand((3, h // 8 * 8, w), generator=g, device=device)
+    err8 = max_err(pyramid.box_downsample_pyramid(x8, 8), plain(pyramid.box_downsample_pyramid, x8, 8))
+    expect("pyramid_down", err8, TOL["pyramid_down"], f"f=8 {tuple(x8.shape)} (16-byte path)")
+    f8 = in_turns({"kernel": lambda: pyramid.box_downsample_pyramid(x8, 8),
+                   "avg_pool2d": lambda: F.avg_pool2d(x8[None], 8)}, 10, 5)
+    del x8
+    print(f"  pyramid_down f=4 3x{h}x{w}, in turns (20 turns of 5 calls each): kernel {turns['kernel']!r} ms, "
+          f"F.avg_pool2d {turns['avg_pool2d']!r} ms; one call per event pair (median of 20): kernel "
+          f"{one_call['kernel']!r} ms, F.avg_pool2d {one_call['avg_pool2d']!r} ms; f=8 in turns: kernel "
+          f"{f8['kernel']!r} ms, F.avg_pool2d {f8['avg_pool2d']!r} ms")
     down = {
         "max_abs_err": err,
-        "ms": med(lambda: pyramid.box_downsample_pyramid(x, 4), 20),
+        "ms": turns["kernel"],
         "plain_ms": med(lambda: plain(pyramid.box_downsample_pyramid, x, 4), 5),
         **bound(x.numel() * 4 * (1 + 1 / 16), x.numel()),
-        "library_ms": med(lambda: F.avg_pool2d(x[None], 4), 20),
+        "library_ms": turns["avg_pool2d"],
+        "one_call": one_call,
+        "f8": {"ms": f8["kernel"], "library_ms": f8["avg_pool2d"]},
     }
     del x
     s = torch.rand((3, h // 4, w // 4), generator=g, device=device) * 3.0
@@ -594,23 +648,27 @@ def halation_inputs(hw, size, g, device):
 
 
 def check_halation(device, bundle, cfg) -> dict:
+    """K14, colour and black-and-white, with and without the development:
+    the 45 MP stack (27 taps), the 24 MP one (43) and the longest ones (49
+    taps, 4 and 5 ranks) at the edges of the 32 x 128 tile (H and W one and
+    three past a tile multiple, W not a multiple of 4); then a profiled
+    call (no host-to-device copy) and the 45 MP and 24 MP frames, timed."""
     g = torch.Generator(device=device).manual_seed(8)
     colour, bw = hal_ops.colour_factors(bundle, False), hal_ops.colour_factors(bundle, True)
     devvec = hal_ops.develop_vector(bundle)
     size = cfg.scale / 4.0 * cfg.halation_size
-    img, us, vs, rows_up = halation_inputs((44, 72), size, g, device)
-    print(f"  halation ranks {len(us)} x {len(us[0])} taps (size {size!r})")
-    for fname, fac in (("colour", colour), ("bw", bw)):
-        for dv in (None, devvec):
-            args = (img, us, vs, rows_up, fac, dv)
-            tol = TOL["halation"] if dv is None else TOL["halation_density"]
-            expect("halation", max_err(hal_ops.halation_mega(*args), plain(hal_ops.halation_mega, *args)),
-                   tol, f"{fname} develop={dv is not None} 3x44x72")
-    img, us, vs, rows_up = halation_inputs((37, 70), size, g, device)  # W not a multiple of 4
-    args = (img, us, vs, rows_up, colour, devvec)
-    expect("halation", max_err(hal_ops.halation_mega(*args), plain(hal_ops.halation_mega, *args)),
-           TOL["halation_density"], "colour develop=True 3x37x70")
-    result = None
+    print(f"  halation ranks {len(hal_ops._full_res_ranks(size)[0])} x "
+          f"{len(hal_ops._full_res_ranks(size)[0][0])} taps (size {size!r})")
+    for hsize, hw in ((size, (44, 72)), (size, (33, 259)), (size, (67, 131)), (41.7, (35, 129)),
+                      (50.0, (65, 387)), (112.0, (33, 131))):
+        img, us, vs, rows_up = halation_inputs(hw, hsize, g, device)
+        for fname, fac in (("colour", colour), ("bw", bw)):
+            for dv in (None, devvec):
+                args = (img, us, vs, rows_up, fac, dv)
+                tol = TOL["halation"] if dv is None else TOL["halation_density"]
+                expect("halation", max_err(hal_ops.halation_mega(*args), plain(hal_ops.halation_mega, *args)),
+                       tol, f"{len(us)}x{len(us[0])} taps {fname} develop={dv is not None} 3x{hw[0]}x{hw[1]}")
+    result, times = None, {}
     for hw in ((H, W), (H24, W24)):
         size_hw = max(hw) / 36.0 / 4.0 * cfg.halation_size
         img, us, vs, rows_up = halation_inputs(hw, size_hw, g, device)
@@ -619,21 +677,28 @@ def check_halation(device, bundle, cfg) -> dict:
             tol = TOL["halation"] if dv is None else TOL["halation_density"]
             err = max_err(hal_ops.halation_mega(*args), plain(hal_ops.halation_mega, *args))
             expect("halation", err, tol, f"{len(us)}x{len(us[0])} taps develop={dv is not None} 3x{hw[0]}x{hw[1]}")
-        ms = med(lambda: hal_ops.halation_mega(*args), 10)
-        plain_ms = med(lambda: plain(hal_ops.halation_mega, *args), 3)
-        print(f"  halation {hw[0]}x{hw[1]} ({len(us[0])} taps, develop): {ms!r} ms vs plain {plain_ms!r} ms")
+        launch = lambda: hal_ops.halation_mega(*args)  # noqa: E731
         if result is None:
-            u2, v2 = sep_rank._stack(us, vs)
-            numel = img.numel()
-            result = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                # the exposure and the /4 rows in, the density out; the
-                # shared ranks on 3 channels, then per output the x4 lerp,
-                # the combine and the development (about 60 FLOPs)
-                **bound(4 * (2 * numel + rows_up.numel()), rank_flops(u2, v2, hw) * 3 + numel * 60),
-                "library_ms": None,
-            }
-        del img, rows_up, args
+            prof = profile_calls(launch, "halation_kernel", 5)
+            if prof["h2d_copies"]:
+                raise AssertionError(f"halation: a launch copied to the device: {prof['h2d_copies']}")
+            print(f"  halation {hw[0]}x{hw[1]} under the profiler: {prof!r}")
+        ms = med(launch, 20)
+        plain_ms = med(lambda: plain(hal_ops.halation_mega, *args), 3)
+        u2, v2 = sep_rank._stack(us, vs)
+        numel = img.numel()
+        # the exposure and the /4 rows in, the density out; the shared ranks
+        # on 3 channels, then per output the x4 lerp, the combine and the
+        # development (about 60 FLOPs)
+        b = bound(4 * (2 * numel + rows_up.numel()), rank_flops(u2, v2, hw) * 3 + numel * 60)
+        times[f"{hw[0]}x{hw[1]}"] = {"taps": [len(us), len(us[0])], "ms": ms, "plain_ms": plain_ms, **b}
+        print(f"  halation {hw[0]}x{hw[1]} ({len(us)} x {len(us[0])} taps, develop): {ms!r} ms vs plain "
+              f"{plain_ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']})")
+        if result is None:
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+                      "device_ms": prof["device_ms"]}
+        del img, rows_up, args, launch
+    result["by_frame"] = times
     return result
 
 

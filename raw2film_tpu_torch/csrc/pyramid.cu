@@ -27,10 +27,25 @@
 //
 // Bound on the H100: device memory, all three. At 45 MP K10 reads 540 MB and
 // writes 34 MB; K12 reads 34 MB (each input row serves 2f output rows, from
-// L2) and writes 135 MB. One thread per output, consecutive threads on
-// consecutive output columns, so every warp's loads are one contiguous run
-// of each input row. K13 reads 1/f^2 of what it writes (from L2) and writes
-// 540 MB at 45 MP: its stores are the bound.
+// L2) and writes 135 MB. K13 reads 1/f^2 of what it writes (from L2) and
+// writes 540 MB at 45 MP: its stores are the bound.
+//
+// K10's design: where f is 4 (the render) or 8 (the /8 level), W % 4 == 0
+// and the input is 16-byte aligned, the input is read in 16-byte read-only
+// loads (__ldg). A thread makes BOX_RUN = 2 outputs from f/4 such loads
+// per input row each, so at f = 4 eight 16-byte loads are in flight per
+// thread. The lanes of a warp take consecutive 16-byte slots of each input
+// row, so every warp load is 512 contiguous bytes (the one-thread-per-
+// output kernel's loads use 128 of the 512 bytes each warp instruction
+// spans). The streaming, non-allocating loads (__ldcs, ld.global.nc.L1::
+// no_allocate) measured 2-3 % slower than __ldg on the H100, a 256-byte L2
+// prefetch 20 % slower, and 1-4 outputs a thread or other block shapes
+// within 2 % (scripts/k10_variants.py). The sums keep the scalar kernel's
+// order (each column top to bottom, the columns left to right, then x
+// float32(1/f^2)). The one-thread-per-output kernel serves every other
+// shape (the resize's other integer shrinks among them); the wrapper picks
+// by shape and alignment. K12: one thread per output, consecutive threads
+// on consecutive output columns.
 //
 // K13's design: the f phase weights and offsets come by value in the launch
 // (Phases, built once per f on the host in float64 and rounded to float32,
@@ -53,6 +68,7 @@ constexpr int UP_RUN = 4;     // output columns per thread
 constexpr int UP_BX = 32;     // blockDim.x: a warp's threads share their rows
 constexpr int UP_BY = 8;      // blockDim.y
 constexpr int UP_RPT = 8;     // consecutive output rows per thread
+constexpr int BOX_RUN = 2;    // K10's 16-byte path: consecutive outputs per thread
 
 // The x f lerp's phases: output o = q f + m reads input q + base[m] with
 // weight w0[m] and q + base[m] + 1 with w1[m] (before the edge clamp).
@@ -68,6 +84,7 @@ static_assert(sizeof(Phases) == 4 + 12 * UP_MAX_F, "Phases: the layout ops/pyram
 
 namespace {
 
+using r2f::BOX_RUN;
 using r2f::Phases;
 using r2f::UP_BX;
 using r2f::UP_BY;
@@ -92,6 +109,68 @@ __global__ void box_downsample_kernel(const float* __restrict__ img,
     total = j == 0 ? col : total + col;
   }
   out[(static_cast<size_t>(c) * h2 + y) * w2 + x] = total * inv;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// K10's 16-byte path at f = 4 G (G = 1: the render, G = 2: the /8 level).
+// A warp (one output row, blockDim.x = 32) makes 32 * BOX_RUN consecutive
+// outputs and reads each input row of them as one run of 16-byte slots,
+// lane l taking slots l + 32 k: every warp load is 512 contiguous bytes.
+// Slot s holds columns 4 (s % G) .. + 3 of output s / G; at G = 2 lane 2m
+// adds lane 2m + 1's four column sums after its own.
+template <int G>
+__global__ void __launch_bounds__(256)
+    box_downsample_slots_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
+                                int W, int h2, int w2, float inv) {
+  constexpr int F = 4 * G;
+  constexpr int KS = BOX_RUN * G;  // slots per lane and input row
+  const int lane = threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int c = blockIdx.z;
+  if (y >= h2) return;  // the whole warp: it is one output row
+  const int xb = blockIdx.x * (32 * BOX_RUN);
+  const float* src = img + static_cast<size_t>(c) * H * W + static_cast<size_t>(y) * F * W +
+                     static_cast<size_t>(xb) * F;
+  float4 col[KS];
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const int s = lane + 32 * k;
+    col[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (xb + s / G < w2) {
+      const float* p = src + 4 * s;
+      col[k] = __ldg(reinterpret_cast<const float4*>(p));
+#pragma unroll
+      for (int i = 1; i < F; ++i)
+        add4(col[k], __ldg(reinterpret_cast<const float4*>(p + static_cast<size_t>(i) * W)));
+    }
+  }
+  float* dst = out + (static_cast<size_t>(c) * h2 + y) * w2 + xb;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    const int s = lane + 32 * k;
+    float total = col[k].x;
+    total += col[k].y;
+    total += col[k].z;
+    total += col[k].w;
+#pragma unroll
+    for (int g = 1; g < G; ++g) {
+      const float a = __shfl_down_sync(0xffffffffu, col[k].x, g);
+      const float b = __shfl_down_sync(0xffffffffu, col[k].y, g);
+      const float d = __shfl_down_sync(0xffffffffu, col[k].z, g);
+      const float e = __shfl_down_sync(0xffffffffu, col[k].w, g);
+      total += a;
+      total += b;
+      total += d;
+      total += e;
+    }
+    if (s % G == 0 && xb + s / G < w2) dst[s / G] = total * inv;
+  }
 }
 
 __global__ void upsample_rows_kernel(const float* __restrict__ img,
@@ -216,15 +295,27 @@ R2F_API int r2f_upsample(const float* img, float* out, int C, int h, int w, int 
 }
 
 // img: (C, H, W) float32; out: (C, H/f, W/f) float32; inv = float32(1/f^2).
+// vec: the 16-byte path, which takes f = 4 or 8, W % 4 == 0 and a 16-byte
+// aligned img; 0: one thread per output, any shape.
 R2F_API int r2f_box_downsample(const float* img, float* out, int C, int H, int W,
-                               int f, float inv, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
+                               int f, float inv, int vec, void* stream) {
+  if (f < 1 || (vec && ((f != 4 && f != 8) || W % 4 != 0 ||
+                        (reinterpret_cast<uintptr_t>(img) & 15) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int h2 = H / f;
   const int w2 = W / f;
   const dim3 block(32, 8);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    const dim3 grid((w2 + 32 * BOX_RUN - 1) / (32 * BOX_RUN), (h2 + 7) / 8, C);
+    if (f == 4)
+      box_downsample_slots_kernel<1><<<grid, block, 0, s>>>(img, out, H, W, h2, w2, inv);
+    else
+      box_downsample_slots_kernel<2><<<grid, block, 0, s>>>(img, out, H, W, h2, w2, inv);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid((w2 + 31) / 32, (h2 + 7) / 8, C);
-  box_downsample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, out, H, W, h2, w2, f, inv);
+  box_downsample_kernel<<<grid, block, 0, s>>>(img, out, H, W, h2, w2, f, inv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
-// The rank stage shared by K2 (sep_rank_grain.cu) and K14 (halation.cu):
-// one block per (channel, TH x TW tile) sums separable rank-1 convolutions
+// K2's rank stage (sep_rank_grain.cu, also K4's): one block per (channel,
+// TH x TW tile) sums separable rank-1 convolutions
 // with reflect-101 borders,
 //
 //   acc = sum_r colconv(u[r]) o rowconv(v[r]) (plane)   over the tile,
@@ -12,11 +12,12 @@
 // thread: rows threadIdx.y + TY * k of column threadIdx.x). Any tap length
 // and rank count serve without a rebuild. The taps are read through a
 // pointer, and at every step all threads of the block read the same tap,
-// so the read is a broadcast wherever the taps live: in K2 the kernel's
+// so the read is a broadcast wherever the taps live: the kernel's
 // parameter bank (a Ranks struct passed by value) or, for a stack above
-// its capacity, a cached device buffer; in K14 a shared-memory copy. The
-// window's centre, win[(rv + ty) * EW + rw + tx], is the input pixel of
-// output (ty, tx) and stays readable after the rank sum.
+// its capacity, a cached device buffer. The window's centre, win[(rv + ty)
+// * EW + rw + tx], is the input pixel of output (ty, tx) and stays readable
+// after the rank sum. K14 (halation.cu) has a rank stage of its own and
+// takes WindowWalk and smem_opt_in from here.
 #pragma once
 
 #include "common.cuh"
@@ -100,16 +101,6 @@ __device__ __forceinline__ void stage_window(const float* __restrict__ src, int 
     win[i] = src[static_cast<size_t>(gy) * W + gx];
   }
   __syncthreads();
-}
-
-// Copy n taps to shared memory, then stage_window. Ends with __syncthreads().
-__device__ __forceinline__ void stage(const float* __restrict__ src, int H, int W,
-                                      int y0, int x0, int KV, int KH,
-                                      const float* __restrict__ taps, int n,
-                                      float* tap, float* win) {
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  for (int i = tid; i < n; i += NT) tap[i] = taps[i];
-  stage_window(src, H, W, y0, x0, KV, KH, win);
 }
 
 // acc[k] = sum over ranks 0..nr-1 of the tile's output (threadIdx.y + TY*k,

@@ -26,6 +26,8 @@ The host-side kernel construction is a numpy copy of the JAX package's
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -189,12 +191,72 @@ def halation_mega_plain(img, u, v, rows_up, factors, develop=None) -> torch.Tens
     return out if develop is None else develop_density(out, develop)
 
 
+K_MIN, K_MAX = 25, 49  # r2f::hal::K_MIN, K_MAX: the kernels' tap lengths (odd)
+MAX_TAPS = 512  # r2f::hal::MAX_TAPS: floats of taps passed by value
+
+
+class Stack(ctypes.Structure):
+    """``r2f::hal::Stack`` (csrc/halation.cu): the image shape, W4 =
+    ceil(W / 4), and R shared ranks of K column taps then K row taps."""
+
+    _fields_ = [
+        ("C", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("W", ctypes.c_int),
+        ("W4", ctypes.c_int),
+        ("R", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("taps", ctypes.c_float * MAX_TAPS),
+    ]
+
+
+@dataclass(frozen=True)
+class Packed:
+    """A K14 stack as the kernel reads it: ``taps`` (R, 2K) float32, each
+    rank's column taps then its row taps, both zero-padded symmetrically to
+    K; ``args`` the by-value struct and ``args_ptr`` its address."""
+
+    taps: np.ndarray
+    args: Stack
+    args_ptr: int
+
+
+_packed: dict = {}
+
+
+def pack(u, v, c: int, h: int, w: int) -> Packed:
+    """K14's launch struct for shared ranks (u, v) on a (c, h, w) image,
+    cached by the taps' contents and the shape. Both tap lengths are padded
+    to the kernels' K: the longer of the two, at least :data:`K_MIN`; a
+    zero tap adds an exact 0, so the result is unchanged."""
+    key = (sep_rank.taps_key(u), sep_rank.taps_key(v), c, h, w)
+    hit = _packed.get(key)
+    if hit is not None:
+        return hit
+    u2, v2 = sep_rank._stack(u, v)
+    if u2.shape[0] != 1:
+        raise ValueError("halation ranks: want shared (R, k) taps")
+    k = max(u2.shape[2], v2.shape[2], K_MIN)
+    if k > K_MAX:
+        raise ValueError(f"halation ranks of {k} taps, the kernel takes at most {K_MAX}")
+    r = u2.shape[1]
+    u2, v2 = (np.pad(t[0], ((0, 0), ((k - t.shape[2]) // 2,) * 2)) for t in (u2, v2))
+    taps = np.ascontiguousarray(np.concatenate([u2, v2], axis=1), np.float32)
+    if taps.size > MAX_TAPS:
+        raise ValueError(f"halation ranks: {r} x 2 x {k} taps, the kernel takes {MAX_TAPS}")
+    taps.setflags(write=False)
+    args = Stack(C=c, H=h, W=w, W4=-(-w // PYR_F), R=r, K=k)
+    ctypes.memmove(args.taps, taps.ctypes.data, taps.nbytes)
+    return sep_rank._remember(_packed, key, Packed(taps, args, ctypes.addressof(args)))
+
+
 def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
     """K14 wrapper. img (C, H, W) float32 exposure; u, v shared rank lists
-    (numpy (R, k) or lists of 1-D taps); rows_up (C, H, ceil(W/4)) the
-    row-upsampled pyramid blur; factors float32 (C,) and develop float32
-    (19,) tensors on img's device. Returns the combined exposure, or with
-    ``develop`` the density."""
+    (numpy (R, k) or lists of 1-D taps, packed by :func:`pack`); rows_up
+    (C, H, ceil(W/4)) the row-upsampled pyramid blur; factors float32 (C,)
+    and develop float32 (19,) tensors on img's device. Returns the combined
+    exposure, or with ``develop`` the density. A launch copies nothing to
+    the device."""
     c, h, w = img.shape
     w4 = rows_up.shape[-1]
     if tuple(rows_up.shape) != (c, h, w4) or (w4 - 1) * PYR_F >= w or w4 * PYR_F < w:
@@ -206,16 +268,11 @@ def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
     kb.require(factors, "factors", torch.float32, (c,))
     if develop is not None:
         kb.require(develop, "develop", torch.float32, (DEVELOP_LEN,))
-    u2, v2 = sep_rank._stack(u, v)
-    if u2.shape[0] != 1:
-        raise ValueError("halation ranks: want shared (R, k) taps")
-    taps = torch.as_tensor(np.concatenate([u2[0], v2[0]], axis=1), device=img.device)
+    p = pack(u, v, c, h, w)
     out = torch.empty_like(img)
     err = kb.lib().r2f_halation(
-        img.data_ptr(), rows_up.data_ptr(), out.data_ptr(), c, h, w, w4,
-        taps.data_ptr(), u2.shape[1], u2.shape[2], v2.shape[2],
-        factors.data_ptr(), develop.data_ptr() if develop is not None else None,
-        kb.stream_ptr(img),
+        img.data_ptr(), rows_up.data_ptr(), out.data_ptr(), p.args_ptr, factors.data_ptr(),
+        develop.data_ptr() if develop is not None else None, kb.stream_ptr(img),
     )
     kb.check(err, "r2f_halation")
     kb.launches["halation"] += 1

@@ -66,8 +66,15 @@ def box_downsample_plain(img: torch.Tensor, f: int) -> torch.Tensor:
     return x.sum(dim=2).sum(dim=-1) * float(np.float32(1.0 / (f * f)))
 
 
+def box_vec_path(f: int, w: int, data_ptr: int) -> bool:
+    """Whether K10 takes its 16-byte path (f = 4 or 8, W a multiple of 4,
+    the input 16-byte aligned); otherwise its one-thread-per-output kernel."""
+    return f in (4, 8) and w % 4 == 0 and data_ptr % 16 == 0
+
+
 def box_downsample_pyramid(img: torch.Tensor, f: int) -> torch.Tensor:
-    """K10 wrapper: (C, H, W) float32 -> (C, H//f, W//f) block mean."""
+    """K10 wrapper: (C, H, W) float32 -> (C, H//f, W//f) block mean. The
+    kernel's path follows :func:`box_vec_path`."""
     f = int(f)
     if f < 1:
         raise ValueError(f"box downsample: factor {f}")
@@ -81,9 +88,10 @@ def box_downsample_pyramid(img: torch.Tensor, f: int) -> torch.Tensor:
     if h2 == 0 or w2 == 0:
         raise ValueError(f"box downsample: {h}x{w} is smaller than the factor {f}")
     out = torch.empty((c, h2, w2), dtype=torch.float32, device=img.device)
+    ptr = img.data_ptr()
     err = kb.lib().r2f_box_downsample(
-        img.data_ptr(), out.data_ptr(), c, h, w, f, float(np.float32(1.0 / (f * f))),
-        kb.stream_ptr(img),
+        ptr, out.data_ptr(), c, h, w, f, float(np.float32(1.0 / (f * f))),
+        int(box_vec_path(f, w, ptr)), kb.stream_ptr(img),
     )
     kb.check(err, "r2f_box_downsample")
     kb.launches["pyramid_down"] += 1

@@ -78,11 +78,30 @@ def test_print_encode_kernel(cuda, quantize):
     assert (got.double() - ref.double()).abs().max().item() <= (1.0 if quantize else 1e-4)
 
 
-@pytest.mark.parametrize("shape,f", [((3, 38, 55), 4), ((2, 37, 53), 3)])
+@pytest.mark.parametrize(
+    "shape,f",
+    [((3, 38, 55), 4), ((2, 37, 53), 3), ((3, 38, 260), 4), ((3, 37, 252), 4), ((2, 45, 136), 8),
+     ((1, 50, 96), 12)],
+)
 def test_box_downsample_kernel(cuda, shape, f):
+    """The one-thread-per-output kernel (W % 4 != 0, f = 3 or 12) and the
+    16-byte path (f = 4, 8 with W % 4 == 0; an odd count of outputs per
+    row)."""
     x = torch.rand(shape, device=cuda) * 3.0
+    assert pyramid.box_vec_path(f, shape[2], x.data_ptr()) == (f in (4, 8) and shape[2] % 4 == 0)
     got = _launched("pyramid_down", pyramid.box_downsample_pyramid, x, f)
     assert (got - _plain(pyramid.box_downsample_pyramid, x, f)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_box_downsample_unaligned(cuda, offset):
+    """A contiguous view that starts 4 or 16 bytes into its storage: the
+    one-thread-per-output kernel where it is not 16-byte aligned."""
+    base = torch.rand(3 * 40 * 64 + 8, device=cuda) * 3.0
+    x = base[offset: offset + 3 * 40 * 64].view(3, 40, 64)
+    assert x.is_contiguous() and pyramid.box_vec_path(4, 64, x.data_ptr()) == (offset % 4 == 0)
+    got = _launched("pyramid_down", pyramid.box_downsample_pyramid, x, 4)
+    assert (got - _plain(pyramid.box_downsample_pyramid, x, 4)).abs().max().item() <= 1e-6
 
 
 @pytest.mark.parametrize("f,oh", [(4, 41), (4, None), (3, 20)])
@@ -110,6 +129,32 @@ def test_halation_kernel(cuda, develop):
     got = _launched("halation", hal_ops.halation_mega, *args)
     tol = 2e-5 if develop else 1e-5
     assert (got - _plain(hal_ops.halation_mega, *args)).abs().max().item() <= tol
+
+
+_DEVELOP = [0.01, 0.2, 0.25, 0.3, 0.6, 0.62, 0.58, -2.0, -2.1, -1.9, 1.0, 1.1, 0.9, 0.3, 0.32, 0.28, 0.5, 0.45, 0.55]
+
+
+@pytest.mark.parametrize("develop", [False, True], ids=["exposure", "density"])
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+@pytest.mark.parametrize(
+    "size,hw",
+    [(57.0, (33, 259)), (41.7, (67, 129)), (112.0, (35, 131)), (50.0, (65, 387))],
+    ids=["27-taps", "43-taps", "5x49-taps", "4x49-taps"],
+)
+def test_halation_kernel_tile_edges(cuda, size, hw, bw, develop):
+    """The 32 x 128 tile's edges: H and W one or three past a tile multiple
+    (W not a multiple of 4), with the 45 MP stack (27 taps), the 24 MP one
+    (43) and the longest ones (49 taps; 5 ranks: 490 floats)."""
+    us, vs, _ = hal_ops._full_res_ranks(size)
+    assert len(us[0]) == {57.0: 27, 41.7: 43, 112.0: 49, 50.0: 49}[size]
+    g = torch.Generator(device=cuda).manual_seed(int(size * 10))
+    img = torch.rand((3, *hw), generator=g, device=cuda) * 2.0
+    rows_up = torch.rand((3, hw[0], -(-hw[1] // 4)), generator=g, device=cuda) * 0.5
+    fac = torch.tensor([0.4, 0.4, 0.4] if bw else [1.0, 0.3, 0.0], device=cuda)
+    dv = torch.tensor(_DEVELOP, device=cuda) if develop else None
+    args = (img, us, vs, rows_up, fac, dv)
+    got = _launched("halation", hal_ops.halation_mega, *args)
+    assert (got - _plain(hal_ops.halation_mega, *args)).abs().max().item() <= (2e-5 if develop else 1e-5)
 
 
 @pytest.mark.parametrize("pattern", ["RGGB", "GBRG"])

@@ -1,11 +1,14 @@
-"""What the K2/K4 and K13 wrappers hand their kernels, on the CPU.
+"""What the K2/K4, K10, K13 and K14 wrappers hand their kernels, on the CPU.
 
 K2 and K4 take their taps by value (``ops/sep_rank.py::pack``, the
 ``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``), packed once per
 distinct stack and cached by content; a stack above the struct's capacity
-goes to a device buffer uploaded once. K13 takes its x f phase table by
-value (``ops/pyramid.py::phases``). No card is needed: these are the host
-halves of the launches."""
+goes to a device buffer uploaded once. K14 takes its shared ranks by value
+too (``ops/halation.py::pack``, ``r2f::hal::Stack`` of ``csrc/halation.cu``),
+padded to the tap length of one of its kernels. K13 takes its x f phase
+table by value (``ops/pyramid.py::phases``); K10 picks its 16-byte path by
+shape and alignment (``ops/pyramid.py::box_vec_path``). No card is needed:
+these are the host halves of the launches."""
 
 import ctypes
 import os
@@ -16,19 +19,50 @@ import threading
 import numpy as np
 import pytest
 
-from raw2film_tpu_torch.ops import pyramid, sep_rank
+from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.ops import halation, pyramid, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "raw2film_tpu_torch", "csrc")
 
 
+def _source(name: str) -> str:
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
 def _constant(name: str, source: str) -> int:
-    with open(os.path.join(CSRC, source)) as f:
-        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+    return int(re.search(rf"constexpr int {name} = (\d+);", _source(source)).group(1))
 
 
 def _taps(p: sep_rank.Packed) -> np.ndarray:
     return np.ctypeslib.as_array(p.args.taps)[: p.taps.size]
+
+
+def _c_signatures() -> dict:
+    """name -> ctypes argtypes of every ``R2F_API int`` entry point in
+    csrc/*.cu, from its C parameter list: pointers as c_void_p, ``int`` as
+    c_int, ``unsigned int`` as c_uint, ``float`` as c_float."""
+    out = {}
+    for name in sorted(os.listdir(CSRC)):
+        if not name.endswith(".cu"):
+            continue
+        for fn, params in re.findall(r"R2F_API int (\w+)\(([^)]*)\)", _source(name)):
+            types = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                if "*" in p:
+                    types.append(ctypes.c_void_p)
+                elif p.startswith("unsigned int "):
+                    types.append(ctypes.c_uint)
+                elif p.startswith("int "):
+                    types.append(ctypes.c_int)
+                elif p.startswith("float "):
+                    types.append(ctypes.c_float)
+                else:
+                    raise AssertionError(f"{fn}: parameter {p!r} has no ctypes rule")
+            out[fn] = tuple(types)
+    return out
 
 
 def test_structs_match_the_kernel_sources():
@@ -39,6 +73,83 @@ def test_structs_match_the_kernel_sources():
     assert ctypes.sizeof(sep_rank.GrainArgs) == 12 + 4 * sep_rank.grain_ops.MAX_TAPS
     assert pyramid.UP_MAX_F == _constant("UP_MAX_F", "pyramid.cu")
     assert ctypes.sizeof(pyramid.Phases) == 4 + 12 * pyramid.UP_MAX_F
+    # K14's launch struct and its entry point
+    assert halation.MAX_TAPS == _constant("MAX_TAPS", "halation.cu")
+    assert (halation.K_MIN, halation.K_MAX) == (_constant("K_MIN", "halation.cu"), _constant("K_MAX", "halation.cu"))
+    assert "sizeof(Stack) == 24 + 4 * MAX_TAPS" in _source("halation.cu")
+    assert ctypes.sizeof(halation.Stack) == 24 + 4 * halation.MAX_TAPS
+    assert [f for f, _ in halation.Stack._fields_] == ["C", "H", "W", "W4", "R", "K", "taps"]
+    want = (ctypes.c_void_p,) * 7  # img, rows_up, out, stack, factors, develop, stream
+    assert _c_signatures()["r2f_halation"] == kb._SIGNATURES["r2f_halation"] == want
+
+
+@pytest.mark.parametrize("name", sorted(kb._SIGNATURES))
+def test_argtypes_match_the_c_entry_points(name):
+    """ctypes passes each argument as the C function declares it (a pointer
+    given as c_int would be cut to 32 bits)."""
+    assert kb._SIGNATURES[name] == _c_signatures()[name]
+
+
+def test_halation_packed_layout():
+    """Each rank's column taps then its row taps, both zero-padded
+    symmetrically to the kernel's K (here the longer, 7 -> 25, the
+    shortest kernel); the shape and W4 = ceil(W / 4) beside them."""
+    rng = np.random.default_rng(5)
+    u = rng.normal(size=(3, 5)).astype(np.float32)
+    v = rng.normal(size=(3, 7)).astype(np.float32)
+    p = halation.pack(u, v, 3, 37, 70)
+    k = halation.K_MIN
+    want = np.concatenate([np.pad(u, ((0, 0), ((k - 5) // 2,) * 2)), np.pad(v, ((0, 0), ((k - 7) // 2,) * 2))], 1)
+    np.testing.assert_array_equal(p.taps, want)
+    np.testing.assert_array_equal(np.ctypeslib.as_array(p.args.taps)[: want.size], want.ravel())
+    assert (p.args.C, p.args.H, p.args.W, p.args.W4, p.args.R, p.args.K) == (3, 37, 70, 18, 3, k)
+    assert halation.pack(u.copy(), v.copy(), 3, 37, 70) is p  # cached by content and shape
+    assert halation.pack(u, v, 3, 37, 72) is not p
+    us, vs, _ = halation._full_res_ranks(57.0)  # the 45 MP stack: 4 ranks x 27 taps, unpadded
+    p27 = halation.pack(us, vs, 3, 5472, 8208)
+    assert (p27.args.R, p27.args.K, p27.args.W4) == (4, 27, 2052)
+    np.testing.assert_array_equal(p27.taps, np.concatenate([np.float32(us), np.float32(vs)], 1))
+
+
+def test_halation_stacks_pack_by_value():
+    """Every stack _full_res_ranks gives where K14 runs (the /4 pyramid
+    alone: halation sizes 41.6-163.2) fits the struct: at most 490 floats,
+    a tap length one of the kernels takes, never padded."""
+    lengths, most = set(), 0
+    for size in np.arange(40.0, 163.95, 0.1):
+        us, vs, by_factor = halation._full_res_ranks(float(round(size, 1)))
+        if list(by_factor) != [halation.PYR_F]:
+            continue
+        p = halation.pack(us, vs, 3, 64, 96)
+        assert p.taps.shape == (len(us), 2 * len(us[0]))  # no padding
+        assert p.args.K % 2 == 1 and halation.K_MIN <= p.args.K <= halation.K_MAX
+        lengths.add(p.args.K)
+        most = max(most, p.taps.size)
+    assert most == 490 <= halation.MAX_TAPS
+    assert lengths == set(range(25, 50, 2))
+
+
+def test_halation_pack_refuses():
+    long = np.ones((1, halation.K_MAX + 2), np.float32)
+    with pytest.raises(ValueError):
+        halation.pack(long, long, 3, 40, 40)  # above the longest kernel
+    many = np.ones((6, halation.K_MAX), np.float32)
+    with pytest.raises(ValueError):
+        halation.pack(many, many, 3, 40, 40)  # 588 floats, above the struct
+    with pytest.raises(ValueError):
+        halation.pack(np.ones((3, 1, 27), np.float32), np.ones((3, 1, 27), np.float32), 3, 40, 40)  # per channel
+
+
+@pytest.mark.parametrize(
+    "f,w,offset,vec",
+    [(4, 8208, 0, True), (8, 8208, 0, True), (12, 96, 0, False), (4, 8207, 0, False), (4, 8208, 4, False),
+     (4, 8208, 16, True), (3, 8208, 0, False), (2, 64, 0, False), (1, 64, 0, False)],
+)
+def test_box_downsample_path(f, w, offset, vec):
+    """K10's 16-byte path takes f = 4 or 8, W a multiple of 4 and a 16-byte
+    aligned input; every other shape goes to the one-thread-per-output
+    kernel."""
+    assert pyramid.box_vec_path(f, w, 0x7F0000000000 + offset) is vec
 
 
 def _stacks():
