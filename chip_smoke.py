@@ -10,11 +10,14 @@
    the card, at small ragged shapes and at the shapes of the paths below,
    and times it beside its bound (the larger of its bytes over 3.35 TB/s
    and its fp32 operations over 67 TFLOP/s) and, where one PyTorch call
-   computes the same function, that call; K4 and K14 also under
-   torch.profiler (the kernel's own device time, and a failure if one call
-   copies anything from the host to the device), K10 on both its paths and
-   timed in turns with F.avg_pool2d, K13 at both pyramid levels, K14 at the
-   45 MP and 24 MP frames;
+   computes the same function, that call; K2 also at every odd tap length
+   3-73 (shared ragged and per-channel ranks, with and without grain, on
+   frames off the tile grid); K2's MTF + grain launch and /4 small blur, K3,
+   K4 and K14 also under torch.profiler (the kernel's own device time, and
+   a failure if one call copies anything from the host to the device); K3
+   with and without the burn, in turns; K4 and K10 timed in turns with
+   F.conv2d and F.avg_pool2d, K10 on both its paths, K13 at both pyramid
+   levels, K14 at the 45 MP and 24 MP frames;
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -38,7 +41,8 @@
    engine within 1 code, its histogram equal to a plain count of its frame,
    the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP;
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
-   the halation-on render's device time by kernel, and prints one JSON line
+   the halation-on render's device time by kernel (a failure if a render
+   copies anything from the host to the device), and prints one JSON line
    of per-kernel results;
 8. prints {"ok": true, "device": {...}} as its last line.
 
@@ -269,12 +273,15 @@ def library_conv_ms(x: torch.Tensor, k2d: np.ndarray, iters: int = 5) -> float:
     return med(lambda: F.conv2d(xp, wt, groups=c), iters)
 
 
-def rank_flops(u3, v3, hw) -> float:
-    """Multiply-adds of a rank stack over an image: every tap of every
-    nonzero rank, each channel (2 FLOPs each)."""
-    u3, v3 = np.asarray(u3), np.asarray(v3)
+def rank_flops(u, v, hw, c: int = 1) -> float:
+    """Multiply-adds of a rank stack over c planes: the true taps (the span
+    of the nonzero ones) of every nonzero rank, each channel (2 FLOPs each);
+    a shared stack counts once per plane."""
+    u3, v3 = sep_rank._stack(u, v)
     live = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
-    return 2.0 * float(live.sum()) * (u3.shape[2] + v3.shape[2]) * hw[0] * hw[1]
+    taps = 2 * sep_rank.true_radius(u3) + 1 + 2 * sep_rank.true_radius(v3) + 1  # (R,)
+    per_plane = float((live * taps).sum())
+    return 2.0 * per_plane * hw[0] * hw[1] * (c if u3.shape[0] == 1 else 1)
 
 
 def check_demosaic(device, full_hw) -> dict:
@@ -304,6 +311,30 @@ def check_demosaic(device, full_hw) -> dict:
     }
 
 
+def check_sep_rank_lengths(device, prm, seed) -> None:
+    """K2 at every odd tap length 3-73 (1 to 10 chunks of 8): shared ragged
+    ranks (the length and about half of it), then per-channel stacks of 2
+    ranks, with and without the grain, on frames whose H and W are not
+    multiples of the 32 x 128 tile (the shorter than the longest taps'
+    reach, so the window reflects more than once)."""
+    g = torch.Generator(device=device).manual_seed(15)
+    rng = np.random.default_rng(15)
+    frames = [torch.rand(hw, generator=g, device=device) * 3.0 for hw in ((3, 33, 131), (3, 97, 259))]
+    worst = 0.0
+    for k in range(3, 75, 2):
+        half = 2 * (k // 4) + 1
+        shared = ([rng.normal(size=k).astype(np.float32) * 0.1, rng.normal(size=half).astype(np.float32) * 0.1],
+                  [rng.normal(size=half).astype(np.float32) * 0.1, rng.normal(size=k).astype(np.float32) * 0.1])
+        per_channel = tuple(rng.normal(size=(3, 2, k)).astype(np.float32) * 0.1 for _ in range(2))
+        for x in frames:
+            for u, v in (shared, per_channel):
+                for grain in (None, (seed, prm, grain_ops.grain_corr_taps(0.2 + k / 20.0))):
+                    worst = max(worst, max_err(sep_rank.fused_sep_rank(x, u, v, grain),
+                                               plain(sep_rank.fused_sep_rank, x, u, v, grain)))
+    expect("sep_rank", worst, TOL["sep_rank"],
+           "every odd length 3-73, ragged shared and per-channel, with and without grain, 3x33x131 and 3x97x259")
+
+
 def check_sep_rank(device, full_hw, cfg) -> dict:
     u3, v3 = mtf_ops.mtf_taps(cfg.mtf_key, cfg.scale)
     gtaps = grain_ops.grain_corr_taps(
@@ -312,6 +343,7 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
     print(f"  sep_rank taps {u3.shape}, grain taps {len(gtaps)}")
     prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=device)
     seed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
+    check_sep_rank_lengths(device, prm, seed)
     g = torch.Generator(device=device).manual_seed(4)
     small = torch.rand((3, 45, 71), generator=g, device=device) * 3.0
     grain = (seed, prm, gtaps)
@@ -335,7 +367,16 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
     expect("sep_rank", max_err(sep_rank.fused_sep_rank(sm, su, sv),
                                plain(sep_rank.fused_sep_rank, sm, su, sv)),
            TOL["sep_rank"], f"ragged shared ranks {tuple(sm.shape)}")
-    print(f"  sep_rank /4 small blur {tuple(sm.shape)}: {med(lambda: sep_rank.fused_sep_rank(sm, su, sv), 20)!r} ms")
+    blur = lambda: sep_rank.fused_sep_rank(sm, su, sv)  # noqa: E731
+    prof = profile_calls(blur, "sep_rank_kernel", 10)
+    if prof["h2d_copies"]:
+        raise AssertionError(f"sep_rank: a small-blur launch copied to the device: {prof['h2d_copies']}")
+    small_blur = {
+        "taps": [len(t) for t in su], "ms": med(blur, 20), "device_ms": prof["device_ms"],
+        **bound(sm.numel() * 8, rank_flops(su, sv, sm.shape[1:], 3)),
+        "library_ms": library_conv_ms(sm, dense_kernels(*sep_rank._stack(su, sv), 3), 5),
+    }
+    print(f"  sep_rank /4 small blur {tuple(sm.shape)}: {small_blur!r}")
     del sm
     for (x0, y0, ch) in ((0, 0, 0), (8150, 5430, 2)):
         a, b = sep_rank.hash_words_kernel(64, 96, x0, y0, ch, *seed, device)
@@ -350,15 +391,22 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
     del got
     px = full_hw[0] * full_hw[1]
     n = len(gtaps)
+    launch = lambda: sep_rank.fused_sep_rank(d, u3, v3, grain)  # noqa: E731
+    prof = profile_calls(launch, "sep_rank_kernel", 5)
+    if prof["h2d_copies"]:
+        raise AssertionError(f"sep_rank: an MTF + grain launch copied to the device: {prof['h2d_copies']}")
+    print(f"  sep_rank MTF + grain 3x{full_hw[0]}x{full_hw[1]} under the profiler: {prof!r}")
     return {
         "max_abs_err": err,
-        "ms": med(lambda: sep_rank.fused_sep_rank(d, u3, v3, grain), 10),
+        "ms": med(launch, 10),
         "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, d, u3, v3, grain), 3),
         # the ranks, then per output the grain's two correlation passes and
         # its amplitude (about 12 FLOPs); float32 in and out
-        **bound(3 * px * 8, rank_flops(u3, v3, full_hw) + 3 * px * (4 * n + 12)),
+        **bound(3 * px * 8, rank_flops(u3, v3, full_hw, 3) + 3 * px * (4 * n + 12)),
         # the convolution alone: the grain has no library counterpart
         "library_ms": library_conv_ms(d, dense_kernels(u3, v3, 3), 3),
+        "device_ms": prof["device_ms"],
+        "small_blur": small_blur,
     }
 
 
@@ -394,20 +442,25 @@ def check_sep_rank_narrow(device) -> dict:
     if prof["h2d_copies"]:
         raise AssertionError(f"sep_rank_narrow: a launch copied to the device: {prof['h2d_copies']}")
     print(f"  sep_rank_narrow {tuple(x.shape)} under the profiler: {prof!r}")
-    # 100 calls each: the per-call times of a launch this small swing with
-    # the host, and medians of 20 moved by half between runs
-    ms, library_ms = med(launch, 100), library_conv_ms(x, dense_kernels(u3, v3, 3), 100)
-    print(f"  sep_rank_narrow {tuple(x.shape)}: {ms!r} ms per call (CUDA events), grouped F.conv2d "
-          f"{library_ms!r} ms; kernel alone {prof['device_ms']!r} ms; wrapper on the host "
-          f"{prof['host_ms']!r} ms")
+    # in turns, one call per event pair (after one untimed call): the
+    # per-call times of a launch this small swing with the host
+    k2d = dense_kernels(u3, v3, 3)
+    xp = F.pad(x[None], (k2d.shape[2] // 2,) * 2 + (k2d.shape[1] // 2,) * 2, mode="reflect")
+    wt = torch.as_tensor(k2d[:, None], device=device)
+    turns = in_turns({"kernel": launch, "conv2d": lambda: F.conv2d(xp, wt, groups=3)}, 100, 1)
+    one_call = {"kernel": med(launch, 100), "conv2d": library_conv_ms(x, dense_kernels(u3, v3, 3), 100)}
+    print(f"  sep_rank_narrow {tuple(x.shape)}: in turns {turns['kernel']!r} ms per call (CUDA events), "
+          f"grouped F.conv2d {turns['conv2d']!r} ms; one call per event pair {one_call!r}; kernel alone "
+          f"{prof['device_ms']!r} ms; wrapper on the host {prof['host_ms']!r} ms")
     return {
         "max_abs_err": err,
-        "ms": ms,
+        "ms": turns["kernel"],
         "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, x, u3, v3), 5),
-        **bound(3 * px * 8, rank_flops(u3, v3, (540, 360))),
-        "library_ms": library_ms,
+        **bound(3 * px * 8, rank_flops(u3, v3, (540, 360), 3)),
+        "library_ms": turns["conv2d"],
         "device_ms": prof["device_ms"],
         "host_ms": prof["host_ms"],
+        "one_call": one_call,
     }
 
 
@@ -512,13 +565,19 @@ def check_print_encode(device, full_hw, bundle, cfg) -> dict:
     pvec = pe.pack_print_vec(bundle)
     g = torch.Generator(device=device).manual_seed(5)
     d = torch.rand((3, 37, 300), generator=g, device=device) * 3.5
-    for mode in ("print", "inversion"):
-        for gamma in ("sRGB", "Rec709", "Gamma 2.2", "ARRI LogC3", "Linear"):
-            for quantize in (True, False):
-                args = (d, pvec, mode, mode == "print", gamma != "sRGB", gamma, quantize)
-                tol = TOL["print_encode"] if quantize else TOL["print_encode_float"]
-                expect("print_encode", max_err(pe.print_encode(*args), plain(pe.print_encode, *args)),
-                       tol, f"{mode} {gamma} quantize={quantize} 3x37x300")
+    dodd = torch.rand((3, 37, 301), generator=g, device=device) * 3.5
+    worst = {}
+    for x in (d, dodd):  # the 16-byte path and the scalar one
+        for mode in ("print", "inversion"):
+            for gamma in ("sRGB", "Rec709", "Gamma 2.2", "Gamma 2.4", "ARRI LogC3", "Linear"):
+                for quantize in (True, False):
+                    args = (x, pvec, mode, mode == "print", gamma != "sRGB", gamma, quantize)
+                    tol = TOL["print_encode"] if quantize else TOL["print_encode_float"]
+                    err = max_err(pe.print_encode(*args), plain(pe.print_encode, *args))
+                    expect("print_encode", err, tol, f"{mode} {gamma} quantize={quantize} 3x37x{x.shape[2]}")
+                    worst[gamma, quantize] = max(worst.get((gamma, quantize), 0.0), err)
+    print(f"  print_encode worst error by gamma (float, then uint8): "
+          f"{ {f'{k[0]} {k[1]}': v for k, v in worst.items()}!r}")
     wide = (
         torch.rand((3, 2000), generator=g, device=device),
         torch.rand((37, 3), generator=g, device=device) / 3,
@@ -535,16 +594,30 @@ def check_print_encode(device, full_hw, bundle, cfg) -> dict:
     args = (dfull, pvec, cfg.print_mode, cfg.shadow_comp, cfg.sat_neutral, cfg.gamma_func, True, burn)
     err = max_err(pe.print_encode(*args), plain(pe.print_encode, *args))
     expect("print_encode", err, TOL["print_encode"], f"burn 3x{full_hw[0]}x{full_hw[1]}")
+    no_burn = args[:-1]
+    expect("print_encode", max_err(pe.print_encode(*no_burn), plain(pe.print_encode, *no_burn)),
+           TOL["print_encode"], f"no burn 3x{full_hw[0]}x{full_hw[1]}")
+    prof = profile_calls(lambda: pe.print_encode(*args), "print_encode_kernel", 5)
+    if prof["h2d_copies"]:
+        raise AssertionError(f"print_encode: a launch copied to the device: {prof['h2d_copies']}")
+    turns = in_turns({"burn": lambda: pe.print_encode(*args), "no_burn": lambda: pe.print_encode(*no_burn)}, 10, 2)
+    print(f"  print_encode 3x{full_hw[0]}x{full_hw[1]} in turns: with the burn {turns['burn']!r} ms, without "
+          f"{turns['no_burn']!r} ms; profiler {prof!r}")
     px = full_hw[0] * full_hw[1]
+    hs, ws = burn[0].shape
     return {
         "max_abs_err": err,
         "ms": med(lambda: pe.print_encode(*args), 20),
         "plain_ms": med(lambda: plain(pe.print_encode, *args), 5),
-        # 3 float32 in, 3 uint8 out; per pixel the burn lerp, the print
+        # 3 float32 in, 3 uint8 out (the burn's matrices are read from L2);
+        # per pixel the burn's two products (ws + hs ws / H MACs), the print
         # curves (about 3 x 30 FLOPs with their exp2/log2), the 3x3 mixes
         # and the encode
-        **bound(px * (12 + 3), px * 150),
+        **bound(px * (12 + 3), px * (150 + 2 * ws) + 2 * full_hw[0] * hs * ws),
         "library_ms": None,
+        "no_burn_ms": med(lambda: pe.print_encode(*no_burn), 20),
+        "in_turns": turns,
+        "device_ms": prof["device_ms"],
     }
 
 
@@ -848,34 +921,30 @@ def main_path(device, codes, bundle, cfg, card: str, want: dict, label: str):
 
 def profile(render, label: str, n: int = 3) -> None:
     """Device time by kernel over n renders, and the device's idle share
-    (torch.profiler; informational, no check depends on it)."""
+    (torch.profiler); fails if a render copies anything from the host to
+    the device."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     render()
     torch.cuda.synchronize()
-    try:
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                render()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = e.self_cuda_time_total
-            rows.append((t, e.key, e.count))
-    except Exception as exc:  # the profiler is optional instrumentation
-        print(f"{label} profile: unavailable ({exc!r})")
-        return
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            render()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        rows.append((t, e.key, e.count))
     total = sum(t for t, _, _ in rows)
     if total <= 0:
-        print(f"{label} profile: the profiler saw no device time")
-        return
+        raise AssertionError(f"{label} profile: the profiler saw no device time")
     print(
         f"{label} profile over {n} renders: device {total / n / 1e3!r} ms/render, wall "
         f"{wall_us / n / 1e3!r} ms/render under the profiler, device idle share "
@@ -883,6 +952,10 @@ def profile(render, label: str, n: int = 3) -> None:
     )
     for t, key, count in sorted(rows, reverse=True)[:14]:
         print(f"  {t / n / 1e3:9.4f} ms/render  x{count // n:<3d} {key[:90]}")
+    h2d = [(key, count) for _, key, count in rows if "HtoD" in key]
+    if h2d:
+        raise AssertionError(f"{label}: {n} renders copied host to device: {h2d}")
+    print(f"{label} profile: no host-to-device copy")
 
 
 # ------------------------------------------------------------ Processor

@@ -1,13 +1,16 @@
 // Shared device helpers of the port's kernels: reflect-101 borders, the
-// exp2/log2 forms of raw2film_tpu/ops/fastmath.py, the display encodes and
-// the PCG-3D grain hash.
+// exp2/log2 forms of raw2film_tpu/ops/fastmath.py, the display encodes,
+// the PCG-3D grain hash and a 4-byte cp.async.
 //
 // Every entry point is a plain C function (loaded with ctypes by
 // raw2film_tpu_torch/kernels/build.py) that launches on the stream it is
 // given, allocates nothing, and returns cudaGetLastError() after its launch.
 //
 // Built without --use_fast_math: exp2f/log2f are the accurate library forms
-// (2 and 1 ulp), not the __exp2f/__log2f approximations.
+// (2 and 1 ulp), each a 15-28 instruction polynomial. The print tail (K3)
+// and K14's development take their exp2/log2 from the SFU instead
+// (lg2_sfu, ex2_sfu); expe, used by the grain amplitude, stays on the
+// library form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,18 +38,34 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i >= n ? period - i : i;
 }
 
-__device__ __forceinline__ float pow10_(float x) { return exp2f(x * LOG2_10); }
-__device__ __forceinline__ float log10_(float x) { return log2f(x) * LOG10_2; }
+// log2 and exp2 on the SFU (lg2/ex2.approx.ftz.f32): one instruction each.
+// lg2 has an absolute error of about 2^-22 near 1 and a relative one of
+// about 2^-22 elsewhere, ex2 a relative error of about 2^-22; the flush to
+// zero of subnormal operands and results moves a value by at most 1e-38.
+__device__ __forceinline__ float lg2_sfu(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float ex2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float expe(float x) { return exp2f(x * LOG2_E); }
+
+// The print tail's forms (K3), on the SFU.
+__device__ __forceinline__ float pow10_(float x) { return ex2_sfu(x * LOG2_10); }
 
 // w * log(1 + exp(u / w)) with inv_w = 1 / w precomputed in float32.
 __device__ __forceinline__ float softplus(float u, float w, float inv_w) {
   const float t = u * inv_w;
-  return w * (fmaxf(t, 0.0f) + LN_2 * log2f(1.0f + exp2f(-fabsf(t) * LOG2_E)));
+  return w * (fmaxf(t, 0.0f) + LN_2 * lg2_sfu(1.0f + ex2_sfu(-fabsf(t) * LOG2_E)));
 }
 
 __device__ __forceinline__ float powc(float x, float p) {
-  return exp2f(log2f(fmaxf(x, 1e-30f)) * p);
+  return ex2_sfu(lg2_sfu(fmaxf(x, 1e-30f)) * p);
 }
 
 // Display transfer codes; the order of raw2film_tpu_torch/ops/print_encode.py
@@ -74,7 +93,7 @@ __device__ __forceinline__ float encode(float x, int gamma) {
       return powc(x, 0.41666666f);
     case GAMMA_LOGC3: {
       const float c_log10_2 = 0.24719f * LOG10_2;
-      return x > 0.010591f ? c_log10_2 * log2f(5.555556f * x + 0.052272f) + 0.385537f
+      return x > 0.010591f ? c_log10_2 * lg2_sfu(5.555556f * x + 0.052272f) + 0.385537f
                            : 5.367655f * x + 0.092809f;
     }
     default:
@@ -109,6 +128,13 @@ __device__ __forceinline__ uint32_t grain_z(int ch, uint32_t seed) {
 // Binomial(64, 1/2) normal from the two hash words: (S - 32) / 4.
 __device__ __forceinline__ float grain_normal(uint32_t a, uint32_t b) {
   return (static_cast<float>(__popc(a) + __popc(b)) - 32.0f) * 0.25f;
+}
+
+// One float from device to shared memory without a register on the way;
+// complete with cp.async.wait_all.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
 }  // namespace r2f

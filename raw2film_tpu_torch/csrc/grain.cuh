@@ -1,5 +1,5 @@
 // The film-grain device code shared by K2's epilogue (sep_rank_grain.cu) and
-// the standalone grain applies K8 and K9 (grain.cu):
+// the grain field and applies K7, K8 and K9 (grain.cu):
 //
 //   field(y, x) = sum_qx t[qx] sum_qy t[qy] n(y + qy, x + qx)
 //   n = (popc(a) + popc(b) - 32) / 4, (a, b) = PCG-3D(x, y + row_off, z)
@@ -43,9 +43,36 @@ __device__ __forceinline__ float shape(float d, const Amp& p) {
   return p.floor_ + (1.0f - p.floor_) * expe(-0.5f * (e * e));
 }
 
+// shape() with its exponential on the SFU (K2's epilogue): a relative error
+// of about 2^-22 in a factor of the grain amplitude, which moves the output
+// by about rms_eff |field| 2.4e-7.
+__device__ __forceinline__ float shape_sfu(float d, const Amp& p) {
+  const float t = (d - p.lo) * p.inv_rng;
+  const float e = (t - p.peak_half - 0.25f) * p.inv_width;
+  return p.floor_ + (1.0f - p.floor_) * ex2_sfu(-0.5f * LOG2_E * (e * e));
+}
+
 // Width and height of the noise window of a th x tw tile.
 __host__ __device__ __forceinline__ int win_w(int tw, int ntaps) { return tw + ntaps - 1; }
 __host__ __device__ __forceinline__ int win_h(int th, int ntaps) { return th + ntaps - 1; }
+
+// Fill the gh x gw window at (x0, y0), salt z, with its noise, element
+// (ly, lx) at win[ly * sy + lx * sx] (row-major: sy = gw, sx = 1;
+// transposed: sy = 1, sx >= gh): warps on rows, lanes on columns, so no
+// index is divided. tid / nthreads: this thread's rank in the block and the
+// block size, a multiple of 32.
+__device__ __forceinline__ void noise_window(float* win, int gh, int gw, int x0, int y0,
+                                             uint32_t z, uint32_t row_off, int tid, int nthreads,
+                                             int sy, int sx) {
+  for (int ly = tid >> 5; ly < gh; ly += nthreads >> 5) {
+    const uint32_t y = static_cast<uint32_t>(y0 + ly) + row_off;
+    for (int lx = tid & 31; lx < gw; lx += 32) {
+      uint32_t a, b;
+      pcg3d(static_cast<uint32_t>(x0 + lx), y, z, a, b);
+      win[ly * sy + lx * sx] = grain_normal(a, b);
+    }
+  }
+}
 
 // Fill win (win_h x win_w) with the noise of the tile at (x0, y0), salt z,
 // then run the column pass into tmp (th x win_w). tid / nthreads: this
@@ -56,13 +83,7 @@ __device__ __forceinline__ void column_field(float* win, float* tmp, int x0, int
   const int nt = g.ntaps;
   const int gw = win_w(tw, nt);
   const int gh = win_h(th, nt);
-  for (int i = tid; i < gh * gw; i += nthreads) {
-    const int wy = i / gw;
-    const int wx = i % gw;
-    uint32_t a, b;
-    pcg3d(static_cast<uint32_t>(x0 + wx), static_cast<uint32_t>(y0 + wy) + g.row_off, z, a, b);
-    win[i] = grain_normal(a, b);
-  }
+  noise_window(win, gh, gw, x0, y0, z, g.row_off, tid, nthreads, gw, 1);
   __syncthreads();
   for (int i = tid; i < th * gw; i += nthreads) {
     const float* col = win + i;

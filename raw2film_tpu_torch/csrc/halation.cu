@@ -119,8 +119,8 @@ using r2f::hal::TH;
 using r2f::hal::TS;
 using r2f::hal::TW;
 
-// The development in base 2 on the SFU (lg2/ex2.approx.ftz.f32, absolute
-// error about 2^-22) instead of common.cuh's 1-ulp library log2f: that one
+// The development in base 2 on the SFU (common.cuh's lg2_sfu / ex2_sfu,
+// absolute error about 2^-22) instead of the 1-ulp library log2f: that one
 // is a 28-instruction polynomial, and three per output were a third of the
 // kernel's instructions. With x = log10(v + flare) = log2(v + flare)
 // log10(2) and t = (x - x0) log2(e) / w, softplus(x - x0, w) = w ln(2)
@@ -129,24 +129,13 @@ using r2f::hal::TW;
 // (v + flare >= 1e-6, 1 + 2^-|t| in [1, 2]), so the flush changes nothing.
 // It moves the density by about 1e-7, far inside the plain version's
 // tolerance (chip_smoke.py's TOL["halation_density"]).
-__device__ __forceinline__ float lg2_sfu(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float ex2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using r2f::cp_async4;
+using r2f::ex2_sfu;
+using r2f::lg2_sfu;
+
 // softplus / (w ln 2) in terms of t (above)
 __device__ __forceinline__ float softplus2(float t) {
   return fmaxf(t, 0.0f) + lg2_sfu(1.0f + ex2_sfu(-fabsf(t)));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
 // Stage the reflect-101 window of the tile at (y0, x0): warps on rows,

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "r2f_sep_rank": (_P, _P, _P, _P, _P, _P, _P),
     "r2f_hash_words": (_P, _P, _I, _I, _I, _I, _I, _U, _U, _P),
     "r2f_print_encode": (
-        _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "r2f_box_downsample": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
     "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),

@@ -37,7 +37,9 @@ def burn_smallmap(density: torch.Tensor, d_ref_green, burn_scale: float = 50.0):
 
     The matrices reproduce the upsample to (hs*f, ws*f) followed by the edge
     pad to (H, W): rows and columns beyond the upsampled extent repeat the
-    last weight row."""
+    last weight row. They depend only on the shape and the factor, so they
+    are built and uploaded once (``conv.device_matrix``) and shared, read
+    only, by every render of that shape."""
     h, w = density.shape[-2:]
     factor = _factor(h, w, burn_scale)
     hs, ws = h // factor, w // factor
@@ -46,18 +48,19 @@ def burn_smallmap(density: torch.Tensor, d_ref_green, burn_scale: float = 50.0):
     small = convops.gaussian_blur(
         convops.box_downsample(_glow_mask(density, d_ref_green), factor), 3.0, truncate=2.0
     )[0]
-    rm = convops._lerp_matrix_full(hs, factor)
-    if rm.shape[0] < h:
-        rm = np.concatenate([rm, np.repeat(rm[-1:], h - rm.shape[0], 0)], 0)
-    cm = convops._lerp_matrix_full(ws, factor)
-    if cm.shape[0] < w:
-        cm = np.concatenate([cm, np.repeat(cm[-1:], w - cm.shape[0], 0)], 0)
     dev = density.device
-    return (
-        small.contiguous(),
-        torch.tensor(rm[:h], device=dev),
-        torch.tensor(cm[:w].T, device=dev),
-    )
+    rowmat = convops.device_matrix(("burn_rows", hs, factor, h), lambda: _lerp_rows(hs, factor, h), dev)
+    colmat = convops.device_matrix(("burn_cols", ws, factor, w), lambda: _lerp_rows(ws, factor, w).T, dev)
+    return small.contiguous(), rowmat, colmat
+
+
+def _lerp_rows(n_in: int, factor: int, n: int) -> np.ndarray:
+    """(n, n_in): the x factor lerp weights of n_in inputs, the last row
+    repeated (or the rows cut) to n."""
+    m = convops._lerp_matrix_full(n_in, factor)
+    if m.shape[0] < n:
+        m = np.concatenate([m, np.repeat(m[-1:], n - m.shape[0], 0)], 0)
+    return m[:n]
 
 
 def burn(density: torch.Tensor, d_ref_green, highlight_burn, burn_scale: float = 50.0) -> torch.Tensor:

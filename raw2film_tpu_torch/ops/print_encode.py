@@ -98,6 +98,13 @@ def print_encode_plain(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True,
     return torch.round(out * 255.0).to(torch.uint8)
 
 
+def vector_path(w: int, *ptrs) -> bool:
+    """Whether K3 takes 16-byte density loads and 4-byte code stores: W a
+    multiple of 4 and every buffer (density, output, colmat or None)
+    16-byte aligned."""
+    return w % 4 == 0 and all(p is None or p % 16 == 0 for p in ptrs)
+
+
 def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=None):
     """K3 wrapper. d (3, H, W) float32; pvec float32[61] (passed to the
     kernel by value); burn = (small (hs, ws), rowmat (H, hs), colmat
@@ -128,10 +135,11 @@ def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=
     out = torch.empty(
         (3, h, w), dtype=torch.uint8 if quantize else torch.float32, device=d.device
     )
+    vec = vector_path(w, d.data_ptr(), out.data_ptr(), ptrs[2])
     err = kb.lib().r2f_print_encode(
         d.data_ptr(), ctypes.cast(pv, ctypes.c_void_p), *ptrs, hs, ws, out.data_ptr(), h, w,
         MODES[mode], int(bool(shadow)), int(bool(sat_neutral)), GAMMA_CODES[gamma],
-        int(bool(quantize)), int(burn is not None), kb.stream_ptr(d),
+        int(bool(quantize)), int(burn is not None), int(vec), kb.stream_ptr(d),
     )
     kb.check(err, "r2f_print_encode")
     kb.launches["print_encode"] += 1

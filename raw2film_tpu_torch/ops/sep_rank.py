@@ -21,9 +21,12 @@ The taps reach the kernel by value: :func:`pack` lays a stack out as the
 ``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``, once per distinct
 stack, cached by the taps' contents (callers such as the burn blur rebuild
 equal taps on every call), and a launch passes a pointer to it, so no
-launch copies anything to the device. A stack above the struct's
-:data:`MAX_TAPS` floats is uploaded once to a device buffer, cached the
-same way.
+launch copies anything to the device. The kernel runs every rank's taps in
+chunks of :data:`CK`: :func:`pack` zero-pads each rank about its centre to
+a multiple of CK from its true length (the span of its nonzero taps), and
+gives it its own chunk counts and window offsets (:func:`chunk_axis`). A
+stack above the struct's :data:`MAX_TAPS` floats is uploaded once to a
+device buffer, cached the same way.
 """
 
 from __future__ import annotations
@@ -43,24 +46,43 @@ from raw2film_tpu_torch.ops.conv import conv1d_axis
 
 K2_CHUNK = 512  # the TPU K2's column chunk (pallas_conv2.py:581)
 K2_TILE = 48  # its preferred row tile (pallas_conv2.py:571, _auto_tile)
-MAX_C = 4  # r2f::sep::MAX_C: per-channel stacks of at most 4 channels
-MAX_TAPS = 2048  # r2f::sep::MAX_TAPS: floats of taps passed by value
+# r2f::sep (csrc/sep_rank.cuh): the tile, the taps per chunk, per-channel
+# stacks of at most 4 channels and 16 ranks, floats of taps passed by value
+# (a stack of at most SMALL_TAPS launches with a struct cut to that size)
+TH, TW = 32, 128
+CK = 8
+MAX_C = 4
+MAX_R = 16
+MAX_TAPS = 2048
+SMALL_TAPS = 128
 CACHE_SIZE = 64  # packed stacks (and device buffers) kept
 
 
+class Rank(ctypes.Structure):
+    """``r2f::sep::Rank``: a rank's column-tap chunks and the window row of
+    its first tap, its row-tap chunks and the window column of its first
+    tap."""
+
+    _fields_ = [("nv", ctypes.c_int), ("ov", ctypes.c_int), ("nh", ctypes.c_int), ("oh", ctypes.c_int)]
+
+
 class Ranks(ctypes.Structure):
-    """``r2f::sep::Ranks`` (csrc/sep_rank.cuh): the image shape and the
-    rank stack of one launch."""
+    """``r2f::sep::Ranks`` (csrc/sep_rank.cuh): the image shape, the window
+    and the chunked rank stack of one launch."""
 
     _fields_ = [
         ("C", ctypes.c_int),
         ("H", ctypes.c_int),
         ("W", ctypes.c_int),
-        ("nrank", ctypes.c_int * MAX_C),
         ("per_channel", ctypes.c_int),
         ("R", ctypes.c_int),
-        ("KV", ctypes.c_int),
-        ("KH", ctypes.c_int),
+        ("stride", ctypes.c_int),
+        ("top", ctypes.c_int),
+        ("left", ctypes.c_int),
+        ("EH", ctypes.c_int),
+        ("EW", ctypes.c_int),
+        ("nrank", ctypes.c_int * MAX_C),
+        ("rank", Rank * MAX_R),
         ("taps", ctypes.c_float * MAX_TAPS),
     ]
 
@@ -79,11 +101,12 @@ class GrainArgs(ctypes.Structure):
 
 @dataclass(frozen=True)
 class Packed:
-    """A rank stack as the kernel reads it: ``taps`` (Cb, R, KV + KH)
-    float32, column taps then row taps per rank; ``nrank`` (Cb,) the ranks
-    run per channel; ``args`` the by-value struct, its taps filled only when
-    ``by_value``, and ``args_ptr`` its address; ``narrow``: whether the
-    TPU's K2 declines this stack on the image shape it was packed for."""
+    """A rank stack as the kernel reads it: ``taps`` (Cb, stride) float32,
+    per rank its chunk-padded column taps then its row taps; ``nrank`` (Cb,)
+    the ranks run per channel; ``args`` the by-value struct, its taps filled
+    only when ``by_value``, and ``args_ptr`` its address; ``narrow``:
+    whether the TPU's K2 declines this stack on the image shape it was
+    packed for."""
 
     taps: np.ndarray
     nrank: np.ndarray
@@ -154,6 +177,39 @@ def _stack(u, v):
     return u, v
 
 
+def true_radius(t: np.ndarray) -> np.ndarray:
+    """(R,) the radius about the centre of each rank's nonzero taps, over
+    every channel of a (Cb, R, k) stack (0 for an all-zero rank): the true
+    length of a rank zero-padded to a longer neighbour is 2 radius + 1."""
+    k = t.shape[-1]
+    dist = np.abs(np.arange(k) - k // 2)
+    live = np.any(t != 0, axis=0)  # (R, k)
+    return np.array([int(dist[row].max()) if row.any() else 0 for row in live], np.int64)
+
+
+def chunk_axis(t: np.ndarray, ck: int = CK):
+    """One axis of a (Cb, R, k) stack in chunks of ``ck`` taps. Rank r, of
+    true radius rad, runs n[r] = ceil((2 rad + 1) / ck) chunks: its true
+    taps with (n ck - 2 rad - 1) // 2 zeros before them and the rest after.
+    Returns (n, off, padded, before, after): ``padded[r]`` its (Cb, n[r] ck)
+    taps; the window reaches ``before`` positions before the output and
+    ``after`` past it; ``off[r]`` is the window position of the rank's first
+    tap for output 0 (the window starting ``before`` positions early)."""
+    rad = true_radius(t)
+    centre = t.shape[-1] // 2
+    n = -(-(2 * rad + 1) // ck)
+    pad = (n * ck - 2 * rad - 1) // 2
+    lo = rad + pad  # reach before the output
+    hi = n * ck - 1 - lo  # and after it
+    before, after = int(lo.max()), int(hi.max())
+    padded = []
+    for r in range(t.shape[1]):
+        p = np.zeros((t.shape[0], n[r] * ck), np.float32)
+        p[:, pad[r] : pad[r] + 2 * rad[r] + 1] = t[:, r, centre - rad[r] : centre + rad[r] + 1]
+        padded.append(p)
+    return n, before - lo, padded, before, after
+
+
 def fused_sep_rank_plain(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     """Plain version of K2. ``grain``: (seed pair, prm f32[6] tensor, taps)."""
     u3, v3 = _stack(u, v)
@@ -171,6 +227,23 @@ def fused_sep_rank_plain(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     return out
 
 
+def chunked(u3: np.ndarray, v3: np.ndarray, c: int, h: int, w: int, nrank, ck: int = CK):
+    """(taps, args): the (Cb, R, k) stacks (u3, v3) for a (c, h, w) image in
+    chunks of ``ck`` taps, as the (Cb, stride) padded taps, per rank its
+    column chunks then its row chunks, and their Ranks struct (its taps not
+    filled); ``nrank`` (Cb,) the ranks each channel runs."""
+    cb, r, _ = u3.shape
+    nv, ov, pu, top, bottom = chunk_axis(u3, ck)
+    nh, oh, pv, left, right = chunk_axis(v3, ck)
+    taps = np.ascontiguousarray(np.concatenate([t for i in range(r) for t in (pu[i], pv[i])], axis=1))
+    args = Ranks(C=c, H=h, W=w, per_channel=int(cb > 1), R=r, stride=taps.shape[1], top=top,
+                 left=left, EH=TH + top + bottom, EW=TW + left + right)
+    args.nrank[:cb] = [int(n) for n in nrank]
+    for i in range(r):
+        args.rank[i] = Rank(int(nv[i]), int(ov[i]), int(nh[i]), int(oh[i]))
+    return taps, args
+
+
 def pack(u, v, c: int, h: int, w: int) -> Packed:
     """The kernel's form of the stack (u, v) for a (c, h, w) image, cached
     by the taps' contents and the image shape."""
@@ -184,15 +257,15 @@ def pack(u, v, c: int, h: int, w: int) -> Packed:
         raise ValueError(f"taps for {cb} channels, image has {c}")
     if cb > MAX_C:
         raise ValueError(f"per-channel taps for {cb} channels, the kernel takes {MAX_C}")
+    if r > MAX_R:
+        raise ValueError(f"{r} ranks, the kernel takes {MAX_R}")
     nonzero = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
     nrank = np.array(
         [int(np.nonzero(row)[0].max()) + 1 if row.any() else 0 for row in nonzero],
         np.int32,
     )
-    taps = np.ascontiguousarray(np.concatenate([u3, v3], axis=2))
+    taps, args = chunked(u3, v3, c, h, w, nrank)
     taps.setflags(write=False)
-    args = Ranks(C=c, H=h, W=w, per_channel=int(cb > 1), R=r, KV=kv, KH=v3.shape[2])
-    args.nrank[:cb] = nrank.tolist()
     by_value = taps.size <= MAX_TAPS
     if by_value:
         ctypes.memmove(args.taps, taps.ctypes.data, taps.nbytes)

@@ -60,6 +60,38 @@ def test_sep_rank_grain_kernel(cuda):
     assert (got - ref).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("grain", [False, True], ids=["ranks", "grain"])
+@pytest.mark.parametrize("per_channel", [False, True], ids=["shared", "per-channel"])
+@pytest.mark.parametrize("k", [3, 9, 23, 41, 73])
+def test_sep_rank_chunked_lengths(cuda, k, per_channel, grain):
+    """The chunked rank stage at short and long taps (1 to 10 chunks of 8),
+    shared and per channel, on a frame one row and three columns past the
+    32 x 128 tile, with and without the grain epilogue (13 taps: 4 chunks
+    of 4)."""
+    rng = np.random.default_rng(k)
+    shape = (3, 3, k) if per_channel else (3, k)
+    u = rng.normal(size=shape).astype(np.float32) * 0.1
+    v = rng.normal(size=shape).astype(np.float32) * 0.1
+    d = torch.rand((3, 161, 643), device=cuda) * 3.0
+    assert not sep_rank.tpu_declines(161, 643, k // 2)
+    g = ((99, 5), torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=cuda),
+         grain_ops.grain_corr_taps(2.3)) if grain else None
+    got = _launched("sep_rank", sep_rank.fused_sep_rank, d, u, v, g)
+    assert (got - _plain(sep_rank.fused_sep_rank, d, u, v, g)).abs().max().item() <= 1e-5
+
+
+def test_sep_rank_ragged_ranks(cuda):
+    """Shared ranks of 15, 27 and 5 taps (the /4 small blur's and a short
+    one), each at its own chunk count, on a frame smaller than one tile."""
+    from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
+
+    u = [gaussian_kernel1d(2.0, 3.5), gaussian_kernel1d(4.0, 3.3), gaussian_kernel1d(0.7, 3.0)]
+    assert [len(t) for t in u] == [15, 27, 5]
+    d = torch.rand((3, 29, 100), device=cuda)
+    got = _launched("sep_rank_narrow", sep_rank.fused_sep_rank, d, u, u)
+    assert (got - _plain(sep_rank.fused_sep_rank, d, u, u)).abs().max().item() <= 1e-5
+
+
 def test_hash_words_kernel(cuda):
     a, b = sep_rank.hash_words_kernel(16, 40, 8190, 5460, 2, 0xFFFFFFF0, 2**31, cuda)
     pa, pb = grain_ops.hash_words(16, 40, 8190, 5460, 2, 0xFFFFFFF0, 2**31, device=cuda)
@@ -76,6 +108,38 @@ def test_print_encode_kernel(cuda, quantize):
     args = (d, pvec, "print", True, False, "Rec709", quantize, (small, rowmat, colmat))
     got, ref = pe.print_encode(*args), _plain(pe.print_encode, *args)
     assert (got.double() - ref.double()).abs().max().item() <= (1.0 if quantize else 1e-4)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("width", [2000, 300, 301], ids=["2000-wide", "vec", "scalar"])
+def test_print_encode_burn_band(cuda, width, quantize):
+    """The burn band T (16 rows x ws) and the sums share the block's shared
+    memory: a 2000-wide small map needs 128 KB (above 48 KB); W = 300 takes
+    the 16-byte path, W = 301 the scalar one; 37 rows leave a short band."""
+    g = torch.Generator(device=cuda).manual_seed(width)
+    d = torch.rand((3, 37, width), generator=g, device=cuda) * 3.5
+    pvec = torch.rand(61, generator=g, device=cuda) * 0.5 + 0.25
+    ws = 2000 if width == 2000 else 7
+    burn = (torch.rand((3, ws), generator=g, device=cuda), torch.rand((37, 3), generator=g, device=cuda) / 3,
+            torch.rand((ws, width), generator=g, device=cuda) / ws)
+    assert pe.vector_path(width, d.data_ptr(), d.data_ptr(), burn[2].data_ptr()) == (width % 4 == 0)
+    args = (d, pvec, "print", True, False, "Gamma 2.2", quantize, burn)
+    got = _launched("print_encode", pe.print_encode, *args)
+    assert (got.double() - _plain(pe.print_encode, *args).double()).abs().max().item() <= (1.0 if quantize else 1e-4)
+
+
+@pytest.mark.parametrize("gamma", ["sRGB", "Rec709", "Gamma 2.2", "Gamma 2.4", "ARRI LogC3", "Linear"])
+@pytest.mark.parametrize("mode", ["print", "inversion"])
+def test_print_encode_tail_on_the_sfu(cuda, mode, gamma):
+    """The tail's exp2/log2 on the SFU, without the burn: every transfer
+    and mode within 1e-4 of the plain version (float) and 1 code (uint8)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d = torch.rand((3, 50, 260), generator=g, device=cuda) * 3.5
+    pvec = torch.rand(61, generator=g, device=cuda) * 0.5 + 0.25
+    for quantize, tol in ((False, 1e-4), (True, 1.0)):
+        args = (d, pvec, mode, mode == "print", gamma == "Linear", gamma, quantize)
+        got = _launched("print_encode", pe.print_encode, *args)
+        assert (got.double() - _plain(pe.print_encode, *args).double()).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize(

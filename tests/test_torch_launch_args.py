@@ -1,9 +1,13 @@
-"""What the K2/K4, K10, K13 and K14 wrappers hand their kernels, on the CPU.
+"""What the K2/K4, K3, K10, K13 and K14 wrappers hand their kernels, on the CPU.
 
 K2 and K4 take their taps by value (``ops/sep_rank.py::pack``, the
 ``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``), packed once per
-distinct stack and cached by content; a stack above the struct's capacity
-goes to a device buffer uploaded once. K14 takes its shared ranks by value
+distinct stack and cached by content, every rank zero-padded about its
+centre to chunks of ``CK`` taps with its own chunk counts and window
+offsets; a stack above the struct's capacity goes to a device buffer
+uploaded once. K3 takes the burn's matrices from a device cache
+(``ops/conv.py::device_matrix``) and picks its 16-byte path by shape and
+alignment (``ops/print_encode.py::vector_path``). K14 takes its shared ranks by value
 too (``ops/halation.py::pack``, ``r2f::hal::Stack`` of ``csrc/halation.cu``),
 padded to the tap length of one of its kernels. K13 takes its x f phase
 table by value (``ops/pyramid.py::phases``); K10 picks its 16-byte path by
@@ -19,8 +23,10 @@ import threading
 import numpy as np
 import pytest
 
+import torch
+
 from raw2film_tpu_torch.kernels import build as kb
-from raw2film_tpu_torch.ops import halation, pyramid, sep_rank
+from raw2film_tpu_torch.ops import burn, chroma_nr, conv, halation, mtf, print_encode, pyramid, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "raw2film_tpu_torch", "csrc")
@@ -37,6 +43,64 @@ def _constant(name: str, source: str) -> int:
 
 def _taps(p: sep_rank.Packed) -> np.ndarray:
     return np.ctypeslib.as_array(p.args.taps)[: p.taps.size]
+
+
+def _ranks_of(p: sep_rank.Packed) -> list:
+    return [(g.nv, g.ov, g.nh, g.oh) for g in p.args.rank[: p.args.R]]
+
+
+def _centred(p: sep_rank.Packed) -> tuple[np.ndarray, np.ndarray]:
+    """The packed stack read back as centred (Cb, R, k) column and row
+    stacks: each rank's padded taps placed by its window offsets."""
+    a, ck = p.args, sep_rank.CK
+    top, bottom = a.top, a.EH - sep_rank.TH - a.top
+    left, right = a.left, a.EW - sep_rank.TW - a.left
+    rv, rh = max(top, bottom), max(left, right)
+    cb = p.taps.shape[0]
+    u = np.zeros((cb, a.R, 2 * rv + 1), np.float32)
+    v = np.zeros((cb, a.R, 2 * rh + 1), np.float32)
+    off = 0
+    for r, (nv, ov, nh, oh) in enumerate(_ranks_of(p)):
+        u[:, r, rv + ov - top: rv + ov - top + nv * ck] = p.taps[:, off: off + nv * ck]
+        off += nv * ck
+        v[:, r, rh + oh - left: rh + oh - left + nh * ck] = p.taps[:, off: off + nh * ck]
+        off += nh * ck
+    assert off == a.stride == p.taps.shape[1]
+    return u, v
+
+
+def _widen(t: np.ndarray, k: int) -> np.ndarray:
+    """A (..., n) odd-length tap array zero-padded symmetrically to k."""
+    return np.pad(t, [(0, 0)] * (t.ndim - 1) + [((k - t.shape[-1]) // 2,) * 2])
+
+
+def _same_taps(a: np.ndarray, b: np.ndarray) -> None:
+    k = max(a.shape[-1], b.shape[-1])
+    np.testing.assert_array_equal(_widen(a, k), _widen(b, k))
+
+
+def _emulate(p: sep_rank.Packed, img: np.ndarray) -> np.ndarray:
+    """What the kernel computes from the packed launch, in float64: the
+    reflect-101 window of the plane (``top`` rows above, ``left`` columns
+    left of the output), then per rank the column pass at window rows ov + y
+    + q and the row pass at window columns oh + x + q, over its padded
+    chunks."""
+    a, ck = p.args, sep_rank.CK
+    c, h, w = img.shape
+    out = np.zeros((c, h, w))
+    for ch in range(c):
+        cb = ch if a.per_channel else 0
+        win = np.pad(img[ch].astype(np.float64),
+                     ((a.top, a.EH - sep_rank.TH - a.top), (a.left, a.EW - sep_rank.TW - a.left)),
+                     mode="reflect")
+        off = 0
+        for nv, ov, nh, oh in _ranks_of(p)[: a.nrank[cb]]:
+            tu = p.taps[cb, off: off + nv * ck]
+            tv = p.taps[cb, off + nv * ck: off + (nv + nh) * ck]
+            col = sum(tu[q] * win[ov + q: ov + q + h] for q in range(nv * ck))
+            out[ch] += sum(tv[q] * col[:, oh + q: oh + q + w] for q in range(nh * ck))
+            off += (nv + nh) * ck
+    return out
 
 
 def _c_signatures() -> dict:
@@ -66,9 +130,15 @@ def _c_signatures() -> dict:
 
 
 def test_structs_match_the_kernel_sources():
-    assert sep_rank.MAX_TAPS == _constant("MAX_TAPS", "sep_rank.cuh")
-    assert sep_rank.MAX_C == _constant("MAX_C", "sep_rank.cuh")
-    assert ctypes.sizeof(sep_rank.Ranks) == 44 + 4 * sep_rank.MAX_TAPS
+    for name in ("MAX_TAPS", "MAX_C", "MAX_R", "SMALL_TAPS", "CK", "TH", "TW"):
+        assert getattr(sep_rank, name) == _constant(name, "sep_rank.cuh"), name
+    assert "sizeof(Ranks) == 312 + 4 * MAX_TAPS" in _source("sep_rank.cuh")
+    assert ctypes.sizeof(sep_rank.Ranks) == 312 + 4 * sep_rank.MAX_TAPS
+    assert ctypes.sizeof(sep_rank.Rank) == 16
+    fields = re.search(r"struct RanksOf \{(.*?)\};", _source("sep_rank.cuh"), re.S).group(1)
+    names = re.findall(r"(\w+)(?:\[\w+\])?[,;]", fields)
+    assert names == [f for f, _ in sep_rank.Ranks._fields_]
+    assert re.search(r"struct Rank \{\s*int nv, ov, nh, oh;", _source("sep_rank.cuh"))
     assert sep_rank.grain_ops.MAX_TAPS == _constant("MAX_TAPS", "grain.cuh")
     assert ctypes.sizeof(sep_rank.GrainArgs) == 12 + 4 * sep_rank.grain_ops.MAX_TAPS
     assert pyramid.UP_MAX_F == _constant("UP_MAX_F", "pyramid.cu")
@@ -162,31 +232,36 @@ def _stacks():
     padded[1, 0, 0] = 0.0  # channel 0: rank 0 zero, rank 3 live: runs 4
     g3, g7 = gaussian_kernel1d(0.8, 3.0), gaussian_kernel1d(2.0, 2.0)
     ragged = ([g3 * 0.3, g7 * 0.7], [g3, g7])
-    ragged_u = np.stack([np.pad(g3 * 0.3, 2), g7 * 0.7])
-    ragged_v = np.stack([np.pad(g3, 2), g7])
+    wide = np.zeros((2, 17), np.float32)  # 17 taps wide, 9 of them live
+    wide[:, 4:13] = rng.normal(size=(2, 9))
     return {
-        # (u, v, channels, the (Cb, R, KV + KH) layout, nrank)
-        "shared": (shared[0], shared[1], 3, np.concatenate([shared[0], shared[1]], 1)[None], [2]),
-        "per-channel": (per_channel[0], per_channel[1], 3,
-                        np.concatenate([per_channel[0], per_channel[1]], 2), [4, 4, 4]),
-        "zero-padded": (padded[0], padded[1], 3, np.concatenate([padded[0], padded[1]], 2), [4, 2, 1]),
-        "ragged": (*ragged, 2, np.concatenate([ragged_u, ragged_v], 1)[None], [2]),
+        # (u, v, channels, nrank, (column, row) chunks per rank)
+        "shared": (shared[0], shared[1], 3, [2], [(1, 1)] * 2),
+        "per-channel": (per_channel[0], per_channel[1], 3, [4, 4, 4], [(1, 1)] * 4),
+        "zero-padded": (padded[0], padded[1], 3, [4, 2, 1], [(1, 1)] * 4),
+        "ragged": (*ragged, 2, [2], [(1, 1), (2, 2)]),
+        "zero-ends": (wide, shared[1], 1, [2], [(2, 1)] * 2),
     }
 
 
 @pytest.mark.parametrize("name", list(_stacks()))
 def test_packed_layout(name):
     """The struct holds the taps as the kernel reads them (per channel, per
-    rank, column taps then row taps) and the ranks each channel runs."""
-    u, v, c, want, nrank = _stacks()[name]
+    rank, its chunk-padded column taps then row taps, each at its window
+    offset), the ranks each channel runs, and the chunks each rank runs:
+    ceil(true length / CK), its zero ends not counted."""
+    u, v, c, nrank, chunks = _stacks()[name]
     p = sep_rank.pack(u, v, c, 40, 50)
     assert p.by_value
-    np.testing.assert_array_equal(_taps(p), want.astype(np.float32).ravel())
-    np.testing.assert_array_equal(p.taps, want)
+    np.testing.assert_array_equal(_taps(p), p.taps.ravel())
+    u3, v3 = sep_rank._stack(u, v)
+    cu, cv = _centred(p)
+    _same_taps(cu, u3)
+    _same_taps(cv, v3)
     assert list(p.args.nrank[: len(nrank)]) == nrank == p.nrank.tolist()
-    assert p.args.per_channel == int(want.shape[0] > 1)
-    assert (p.args.C, p.args.H, p.args.W) == (c, 40, 50)
-    assert (p.args.R, p.args.KV, p.args.KH) == (want.shape[1], want.shape[2] // 2, want.shape[2] // 2)
+    assert p.args.per_channel == int(u3.shape[0] > 1)
+    assert (p.args.C, p.args.H, p.args.W, p.args.R) == (c, 40, 50, u3.shape[1])
+    assert [(nv, nh) for nv, _, nh, _ in _ranks_of(p)] == chunks
 
 
 def test_equal_stacks_hit_the_cache():
@@ -201,7 +276,8 @@ def test_equal_stacks_hit_the_cache():
     other[3] = np.nextafter(other[3], np.float32(1.0))
     changed = sep_rank.pack(other[None], again[None], 1, 49, 74)
     assert changed is not first
-    assert _taps(changed)[3] == other[3] != _taps(first)[3]
+    i = 3 + (sep_rank.CK * 2 - len(k1)) // 2  # 13 taps run 16, one zero before them
+    assert _taps(changed)[i] == other[3] != _taps(first)[i]
     assert sep_rank.pack(again[None], again[None], 1, 49, 80) is not first
 
 
@@ -213,21 +289,127 @@ def test_packed_narrow_flag():
 
 
 def test_stack_above_capacity_takes_the_device_buffer():
-    """9 ranks x (121 + 121) taps = 2178 floats: above the struct, so the
-    wrapper reads a device buffer, uploaded once per stack and device."""
+    """9 ranks x (121 + 121) taps, 128 + 128 when padded = 2304 floats:
+    above the struct, so the wrapper reads a device buffer of the packed
+    layout, uploaded once per stack and device."""
     rng = np.random.default_rng(9)
     u = (rng.normal(size=(9, 121)) * 0.02).astype(np.float32)
     v = (rng.normal(size=(9, 121)) * 0.02).astype(np.float32)
-    assert u.size + v.size > sep_rank.MAX_TAPS
     p = sep_rank.pack(u, v, 3, 60, 70)
-    assert not p.by_value
+    assert p.taps.size == 9 * 256 > sep_rank.MAX_TAPS and not p.by_value
     buf = sep_rank.device_taps(p, "cpu")
-    np.testing.assert_array_equal(buf.numpy(), np.concatenate([u, v], 1)[None])
+    np.testing.assert_array_equal(buf.numpy(), p.taps)
+    cu, cv = _centred(p)
+    _same_taps(cu, u[None])
+    _same_taps(cv, v[None])
     assert sep_rank.device_taps(p, "cpu") is buf
     rebuilt = sep_rank.pack(u.copy(), v.copy(), 3, 200, 90)  # another shape, the same taps
     assert rebuilt is not p and sep_rank.device_taps(rebuilt, "cpu") is buf
     small = sep_rank.pack(u[:4], v[:4], 3, 60, 70)
     assert small.by_value
+
+
+_BUNDLE = {}
+
+
+def _mtf_key():
+    if not _BUNDLE:
+        from raw2film_tpu_torch import load_film_bundle
+
+        _BUNDLE["cfg"] = load_film_bundle(h=540, w=360, device="cpu", grain=2, sharpness=True)[1]
+    return _BUNDLE["cfg"].mtf_key
+
+
+def _port_stack(name: str):
+    """(u, v, channels) of a stack the port sends: the MTF at a scale in
+    px/mm, the glow's dense and SVD tiers and the /4 small blur at a
+    halation size, chroma NR at a strength, the burn's Gaussian."""
+    kind, _, arg = name.partition("-")
+    if kind == "mtf":
+        return (*mtf.mtf_taps(_mtf_key(), float(arg)), 3)
+    if kind == "glow":
+        k = halation.exponential_blur_kernel(float(arg)).astype(np.float32)
+        return (*conv.svd_separable(k, tol=1e-4, max_rank=6 if float(arg) <= 12.0 else 8), 3)
+    if kind == "smallblur":
+        return (*halation.pyramid_taps(4, halation._full_res_ranks(float(arg))[2][4]), 3)
+    if kind == "chromanr":
+        size = int(arg) * 2 + 1
+        k = chroma_nr.cv_gaussian_kernel1d(size, 0.3 * ((size - 1) * 0.5 - 1.0) + 0.8)[None]
+        return k, k, 2
+    k = gaussian_kernel1d(3.0, truncate=2.0)[None]
+    return k, k, 1
+
+
+PORT_STACKS = ["mtf-15", "mtf-30", "mtf-57", "mtf-114", "mtf-228", "mtf-400", "glow-3", "glow-10",
+               "glow-13", "glow-25", "glow-40", "smallblur-57", "smallblur-41.7", "smallblur-100",
+               "chromanr-1", "chromanr-3", "chromanr-10", "burn"]
+
+
+@pytest.mark.parametrize("name", PORT_STACKS)
+def test_port_stacks_chunk_layout(name):
+    """Every stack the port sends packs by value, each rank in
+    ceil(true length / CK) chunks (less than one chunk of padding), inside
+    the window the kernel stages (what r2f_sep_rank checks before a launch);
+    read back, the padded taps are the stack; and the kernel's arithmetic on
+    the packed launch, emulated, gives the plain version."""
+    u, v, c = _port_stack(name)
+    p = sep_rank.pack(u, v, c, 37, 45)
+    a, ck = p.args, sep_rank.CK
+    assert p.by_value and p.taps.size <= sep_rank.MAX_TAPS
+    u3, v3 = sep_rank._stack(u, v)
+    if isinstance(u, list):
+        true = [(len(a_), len(b_)) for a_, b_ in zip(u, v)]
+    else:
+        span = lambda t: [int(2 * np.abs(np.nonzero(np.any(t[:, r] != 0, 0))[0] - t.shape[-1] // 2).max() + 1)  # noqa: E731
+                          for r in range(t.shape[1])]
+        true = list(zip(span(u3), span(v3)))
+    assert [(nv, nh) for nv, _, nh, _ in _ranks_of(p)] == [(-(-lu // ck), -(-lv // ck)) for lu, lv in true]
+    total = 0
+    for nv, ov, nh, oh in _ranks_of(p):
+        assert ov >= 0 and ov + sep_rank.TH + nv * ck - 1 <= a.EH
+        assert oh >= 0 and oh + sep_rank.TW + nh * ck - 1 <= a.EW
+        total += (nv + nh) * ck
+    assert total == a.stride and 0 < a.stride * p.taps.shape[0] == p.taps.size
+    cu, cv = _centred(p)
+    _same_taps(cu, u3)
+    _same_taps(cv, v3)
+    img = np.random.default_rng(4).uniform(0.0, 3.0, (c, 37, 45)).astype(np.float32)
+    want = sep_rank.fused_sep_rank_plain(torch.from_numpy(img), u, v).numpy()
+    np.testing.assert_allclose(_emulate(p, img), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["mtf-57", "glow-25", "smallblur-57", "chromanr-3", "zero-ends"])
+def test_plain_unchanged_by_padding(name):
+    """The plain version of the stack as the kernel runs it (every rank
+    padded to its chunks, at its window offset) equals the plain version of
+    the stack as given, bit for bit: the padding adds exact zeros."""
+    u, v, c = _port_stack(name) if name != "zero-ends" else _stacks()[name][:3]
+    p = sep_rank.pack(u, v, c, 37, 45)
+    img = torch.from_numpy(np.random.default_rng(6).uniform(0.0, 3.0, (c, 37, 45)).astype(np.float32))
+    cu, cv = _centred(p)
+    if cu.shape[0] == 1:
+        cu, cv = cu[0], cv[0]
+    np.testing.assert_array_equal(sep_rank.fused_sep_rank_plain(img, cu, cv).numpy(),
+                                  sep_rank.fused_sep_rank_plain(img, u, v).numpy())
+
+
+def test_small_blur_ranks_run_their_own_length():
+    """The 45 MP /4 small blur: ranks of 15 and 27 taps run 16 and 32, not
+    both the longest; the MTF's 23 run 24."""
+    u, v, _ = _port_stack("smallblur-57")
+    assert [len(t) for t in u] == [15, 27]
+    assert [nv for nv, _, _, _ in _ranks_of(sep_rank.pack(u, v, 3, 1368, 2052))] == [2, 4]
+    u3, v3, _ = _port_stack("mtf-228")
+    assert u3.shape == (3, 4, 23)
+    assert _ranks_of(sep_rank.pack(u3, v3, 3, 5472, 8208))[0][::2] == (3, 3)
+
+
+@pytest.mark.parametrize("name", ["mtf-15", "glow-3", "burn"])
+def test_k4_stacks_launch_small(name):
+    """K4's stacks (the preview's MTF at 15 px/mm, its glow's dense tier,
+    the burn's Gaussian) launch with the struct cut to SMALL_TAPS."""
+    u, v, c = _port_stack(name)
+    assert sep_rank.pack(u, v, c, 540, 360).taps.size <= sep_rank.SMALL_TAPS
 
 
 def test_pack_refuses():
@@ -237,6 +419,9 @@ def test_pack_refuses():
     u5 = np.ones((5, 1, 3), np.float32)
     with pytest.raises(ValueError):
         sep_rank.pack(u5, u5, 5, 10, 10)  # above MAX_C per-channel stacks
+    many = np.ones((sep_rank.MAX_R + 1, 3), np.float32)
+    with pytest.raises(ValueError):
+        sep_rank.pack(many, many, 3, 10, 10)  # above MAX_R ranks
 
 
 def test_pack_cache_under_threads():
@@ -251,7 +436,9 @@ def test_pack_cache_under_threads():
             for i in range(len(stacks)):
                 u, v = stacks[(i + offset) % len(stacks)]
                 p = sep_rank.pack(u.copy(), v.copy(), 3, 20, 30)
-                if not np.array_equal(p.taps[0], np.concatenate([u, v], 1)):
+                # 5 taps run 8: one zero before them, two after
+                want = np.concatenate([np.pad(t[r], (1, 2)) for r in range(2) for t in (u, v)])
+                if not np.array_equal(p.taps[0], want):
                     errors.append(i)
         except Exception as exc:  # noqa: BLE001 - reported through the assert below
             errors.append(exc)
@@ -296,3 +483,46 @@ def test_phase_table_gives_lerp_taps(f):
 def test_phase_table_refuses_large_factors():
     with pytest.raises(ValueError):
         pyramid.phases(pyramid.UP_MAX_F + 1)
+
+
+@pytest.mark.parametrize(
+    "w,offsets,vec",
+    [(8208, (0, 0, 0), True), (8208, (0, 0, None), True), (8207, (0, 0, 0), False), (8208, (4, 0, 0), False),
+     (8208, (0, 0, 8), False), (8208, (16, 0, 32), True), (300, (0, 0, None), True), (2, (0, 0, None), False)],
+)
+def test_print_encode_vector_path(w, offsets, vec):
+    """K3's 16-byte loads and 4-byte stores take W a multiple of 4 and the
+    density, output and colmat (None without the burn) 16-byte aligned."""
+    ptrs = [None if o is None else 0x7F0000000000 + o for o in offsets]
+    assert print_encode.vector_path(w, *ptrs) is vec
+
+
+def test_burn_matrices_stay_on_the_device():
+    """The burn's lerp matrices and its downsample's mean matrices are built
+    and uploaded once per shape and factor: a second burn_smallmap of the
+    same shape gets the same tensors, equal to the host builders'; another
+    shape gets its own; the cache stays bounded."""
+    d = torch.rand((3, 990, 1485)) * 2.0
+    first = burn.burn_smallmap(d, 0.8, 10.0)
+    second = burn.burn_smallmap(d * 0.5, 0.8, 10.0)
+    assert first is not None and first[1] is second[1] and first[2] is second[2]
+    assert first[1].is_contiguous() and first[2].is_contiguous()  # K3 takes them without a copy
+    factor = 99  # ceil(990 / 10)
+    hs, ws = 990 // factor, 1485 // factor
+    rm = conv._lerp_matrix_full(hs, factor)
+    np.testing.assert_array_equal(first[1].numpy(), rm)
+    cm = conv._lerp_matrix_full(ws, factor)
+    np.testing.assert_array_equal(first[2].numpy(), cm.T)
+    dh = conv.device_matrix(("mean", hs, factor), None, "cpu")  # built by the burn's downsample
+    np.testing.assert_array_equal(dh.numpy(), conv._mean_matrix(hs, factor))
+    other = burn.burn_smallmap(torch.rand((3, 1000, 1485)), 0.8, 10.0)
+    assert other[1] is not first[1] and other[1].shape == (1000, 10)
+    np.testing.assert_array_equal(other[1][-10:].numpy(), np.repeat(conv._lerp_matrix_full(10, 100)[-1:], 10, 0))
+    small = torch.rand((3, 300, 450))  # factor 6: the staged burn, its upsample on cached matrices too
+    burn.burn(small, 0.8, 0.3, 50.0)
+    uw = conv.device_matrix(("lerp_t", 75, 6), None, "cpu")
+    assert uw.is_contiguous()
+    np.testing.assert_array_equal(uw.numpy(), conv._lerp_matrix_full(75, 6).T)
+    for n in range(conv.MATRIX_CACHE_SIZE + 4):
+        conv.box_downsample(torch.rand((1, 40 + n, 40)), 3)
+    assert len(conv._device_matrices) <= conv.MATRIX_CACHE_SIZE
