@@ -17,7 +17,10 @@
    a failure if one call copies anything from the host to the device); K3
    with and without the burn, in turns; K4 and K10 timed in turns with
    F.conv2d and F.avg_pool2d, K10 on both its paths, K13 at both pyramid
-   levels, K14 at the 45 MP and 24 MP frames;
+   levels, K14 at the 45 MP and 24 MP frames; K1 on both its paths at 45 MP
+   and at phase (f)'s shapes, K12 on both at the 45 MP and 24 MP /4
+   levels, each path named, both paths timed in turns (their device time
+   is read from the profiled render below);
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -42,7 +45,8 @@
    the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP;
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
    the halation-on render's device time by kernel (a failure if a render
-   copies anything from the host to the device), and prints one JSON line
+   copies anything from the host to the device, or more than
+   D2H_PER_RENDER from the device to the host), and prints one JSON line
    of per-kernel results;
 8. prints {"ok": true, "device": {...}} as its last line.
 
@@ -144,6 +148,10 @@ def counts(**nonzero) -> dict:
 LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1,
                      halation=1, print_encode=1)
 LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
+# Device-to-host copies in one profiled 45 MP render: K3's wrapper reads the
+# film parameters back once (the input matrix is folded from the bundle's
+# host copy).
+D2H_PER_RENDER = 1
 # Processor.process() of the DNG: (overrides of the benchmark settings,
 # launches per render, output shape). Every phase blurs the burn's small map
 # on K4 once.
@@ -284,30 +292,70 @@ def rank_flops(u, v, hw, c: int = 1) -> float:
     return 2.0 * per_plane * hw[0] * hw[1] * (c if u3.shape[0] == 1 else 1)
 
 
+def demosaic_path(x: torch.Tensor) -> str:
+    """The K1 path a mosaic takes (its output is freshly allocated, 16-byte
+    aligned)."""
+    return "16-byte" if dm.vec_path(x.shape[1], x.dtype, x.data_ptr()) else "general"
+
+
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x one element into its storage: not 16-byte
+    aligned."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = base[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def check_demosaic(device, full_hw) -> dict:
+    """K1 at small ragged shapes in every phase, then on both paths at 45 MP
+    (the 16-byte path, and the general one on an unaligned copy) and at
+    phase (f)'s mosaic (5457 x 8208, odd H) and its 8207-wide crop; the 45
+    MP frame timed on both paths, in turns."""
     g = torch.Generator(device=device).manual_seed(1)
     mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
     for pattern in dm.PATTERNS:
-        codes = mosaic_codes(37, 53, 2, device)
-        expect("demosaic", max_err(dm.demosaic_exposure(codes, pattern, mat, NORM),
-                                   plain(dm.demosaic_exposure, codes, pattern, mat, NORM)),
-               TOL["demosaic"], f"u16+norm+mat 37x53 {pattern}")
-        f = torch.rand((37, 53), generator=g, device=device)
-        expect("demosaic", max_err(dm.demosaic_mhc(f, pattern), plain(dm.demosaic_mhc, f, pattern)),
-               TOL["demosaic"], f"f32 37x53 {pattern}")
+        for hw in ((37, 53), (49, 392)):
+            codes = mosaic_codes(*hw, 2, device)
+            expect("demosaic", max_err(dm.demosaic_exposure(codes, pattern, mat, NORM),
+                                       plain(dm.demosaic_exposure, codes, pattern, mat, NORM)),
+                   TOL["demosaic"], f"u16+norm+mat {hw[0]}x{hw[1]} {pattern} ({demosaic_path(codes)} path)")
+            f = torch.rand(hw, generator=g, device=device)
+            expect("demosaic", max_err(dm.demosaic_mhc(f, pattern), plain(dm.demosaic_mhc, f, pattern)),
+                   TOL["demosaic"], f"f32 {hw[0]}x{hw[1]} {pattern} ({demosaic_path(f)} path)")
     codes = mosaic_codes(*full_hw, 3, device)
-    got = dm.demosaic_exposure(codes, "RGGB", mat, NORM)
-    err = max_err(got, plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM))
-    expect("demosaic", err, TOL["demosaic"], f"u16+norm+mat {full_hw[0]}x{full_hw[1]}")
+    if demosaic_path(codes) != "16-byte":
+        raise AssertionError("the 45 MP mosaic should take K1's 16-byte path")
+    launch = lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM)  # noqa: E731
+    err = max_err(launch(), plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM))
+    expect("demosaic", err, TOL["demosaic"], f"u16+norm+mat {full_hw[0]}x{full_hw[1]} (16-byte path)")
+    off = unaligned(codes)
+    if demosaic_path(off) != "general":
+        raise AssertionError("an unaligned mosaic should take K1's general path")
+    general = lambda: dm.demosaic_exposure(off, "RGGB", mat, NORM)  # noqa: E731
+    expect("demosaic", max_err(general(), plain(dm.demosaic_exposure, off, "RGGB", mat, NORM)), TOL["demosaic"],
+           f"u16+norm+mat {full_hw[0]}x{full_hw[1]} unaligned (general path)")
+    by_path = {}
+    for name, (y0, x0, h, w) in {"phase_f": (4, 0, 5457, 8208), "phase_f_crop": (8, 1, 5449, 8207)}.items():
+        part = codes[y0:y0 + h, x0:x0 + w].contiguous()
+        e = max_err(dm.demosaic_exposure(part, "RGGB", mat, NORM), plain(dm.demosaic_exposure, part, "RGGB", mat, NORM))
+        expect("demosaic", e, TOL["demosaic"], f"u16+norm+mat {h}x{w} ({demosaic_path(part)} path)")
+        by_path[name] = {"shape": [h, w], "path": demosaic_path(part), "max_abs_err": e}
+    turns = in_turns({"16-byte": launch, "general": general}, 10, 3)
+    print(f"  demosaic {full_hw[0]}x{full_hw[1]} in turns: 16-byte path {turns['16-byte']!r} ms, general path "
+          f"{turns['general']!r} ms; {by_path!r}")
+    del off
     px = full_hw[0] * full_hw[1]
     return {
         "max_abs_err": err,
-        "ms": med(lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM), 20),
+        "ms": med(launch, 20),
         "plain_ms": med(lambda: plain(dm.demosaic_exposure, codes, "RGGB", mat, NORM), 5),
         # u16 in, 3 float32 out; per pixel the normalize, the MHC filter
         # (about 13 taps for each of 2 missing colours) and the 3x3 matrix
         **bound(px * (2 + 12), px * (2 + 2 * 2 * 13 + 15)),
         "library_ms": None,
+        "in_turns": turns,
+        "by_path": by_path,
     }
 
 
@@ -482,11 +530,18 @@ def profile_calls(fn, kernel: str, n: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as one:
-        fn()
-        torch.cuda.synchronize()
-    rows = device_rows(one)
-    if not any(kernel in key for key, _, _ in rows):
+    for attempt in range(1, 4):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as one:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_rows(one)
+        if any(kernel in key for key, _, _ in rows):
+            break
+        # the profiler has returned no device rows at all for one call of a
+        # kernel of a few microseconds (K4) on the H100; the next session
+        # is taken as the check
+        print(f"  profile of one call shows no {kernel} (attempt {attempt}): {rows}")
+    else:
         raise AssertionError(f"the profile of one call shows no {kernel}: {rows}")
     h2d = [key for key, _, _ in rows if "HtoD" in key]
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as many:
@@ -642,11 +697,17 @@ def in_turns(fns: dict, rounds: int, per: int) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def rows_path(x: torch.Tensor) -> str:
+    """The K12 path an input takes (its output is freshly allocated)."""
+    return "16-byte" if pyramid.rows_vec_path(x.shape[2], x.data_ptr()) else "scalar"
+
+
 def check_pyramid(device, full_hw) -> tuple[dict, dict]:
     """K10 on both paths (the 16-byte one: f = 4 or 8, W a multiple of 4,
     the input aligned; the one-thread-per-output one: W % 4 != 0, f = 3 or
     12, and a contiguous view 4 bytes into its storage), then at 45 MP,
-    timed in turns with F.avg_pool2d; K12 at small crops and at 45 MP."""
+    timed in turns with F.avg_pool2d; K12 at small crops on both paths,
+    then on both at the 45 MP and 24 MP /4 levels."""
     g = torch.Generator(device=device).manual_seed(7)
     for shape, f in (((3, 37, 53), 3), ((3, 38, 55), 4), ((2, 9, 9), 4), ((1, 40, 64), 1), ((3, 38, 260), 4),
                      ((3, 37, 252), 4), ((2, 45, 136), 8), ((1, 50, 96), 12)):
@@ -661,11 +722,12 @@ def check_pyramid(device, full_hw) -> tuple[dict, dict]:
         raise AssertionError("an unaligned view should take the scalar path")
     expect("pyramid_down", max_err(pyramid.box_downsample_pyramid(x, 4), plain(pyramid.box_downsample_pyramid, x, 4)),
            TOL["pyramid_down"], "f=4 (3, 40, 64) unaligned view (scalar path)")
-    for shape, f, oh in (((3, 11, 29), 4, 41), ((3, 11, 29), 4, None), ((2, 7, 30), 3, 20)):
+    for shape, f, oh in (((3, 11, 29), 4, 41), ((3, 11, 29), 4, None), ((2, 7, 30), 3, 20), ((3, 11, 32), 4, 41),
+                         ((3, 40, 260), 4, None), ((1, 7, 64), 8, 53)):
         x = torch.rand(shape, generator=g, device=device) * 3.0
         expect("pyramid_up_rows", max_err(pyramid.bilinear_upsample_rows(x, f, oh),
                                           plain(pyramid.bilinear_upsample_rows, x, f, oh)),
-               TOL["pyramid_up_rows"], f"f={f} oh={oh} {shape}")
+               TOL["pyramid_up_rows"], f"f={f} oh={oh} {shape} ({rows_path(x)} path)")
     h, w = full_hw
     x = torch.rand((3, h, w), generator=g, device=device) * 3.0
     if not pyramid.box_vec_path(4, w, x.data_ptr()):
@@ -697,18 +759,40 @@ def check_pyramid(device, full_hw) -> tuple[dict, dict]:
         "f8": {"ms": f8["kernel"], "library_ms": f8["avg_pool2d"]},
     }
     del x
-    s = torch.rand((3, h // 4, w // 4), generator=g, device=device) * 3.0
-    err = max_err(pyramid.bilinear_upsample_rows(s, 4, h), plain(pyramid.bilinear_upsample_rows, s, 4, h))
-    expect("pyramid_up_rows", err, TOL["pyramid_up_rows"], f"f=4 {tuple(s.shape)} -> {h} rows")
-    up = {
-        "max_abs_err": err,
-        "ms": med(lambda: pyramid.bilinear_upsample_rows(s, 4, h), 20),
-        "plain_ms": med(lambda: plain(pyramid.bilinear_upsample_rows, s, 4, h), 5),
-        # read the /4 level, write 4x its rows; a lerp (3 FLOPs) per output
-        **bound(s.numel() * 4 * 5, s.numel() * 4 * 3),
-        "library_ms": med(lambda: F.interpolate(s[None], size=(s.shape[1] * 4, s.shape[2]), mode="bilinear",
-                                                align_corners=False)[..., :h, :], 20),
-    }
+    # K12 on both paths at the 45 MP and 24 MP /4 levels (the 16-byte path,
+    # and the scalar one on an unaligned copy), each within its tolerance
+    # (bit-equality reported); the 45 MP level timed on both, in turns
+    by_frame = {}
+    for fh, fw in ((h, w), (H24, W24)):
+        s = torch.rand((3, fh // 4, fw // 4), generator=g, device=device) * 3.0
+        s_off = unaligned(s)
+        if (rows_path(s), rows_path(s_off)) != ("16-byte", "scalar"):
+            raise AssertionError(f"K12 paths at {tuple(s.shape)}: {rows_path(s)}, {rows_path(s_off)}")
+        errs = {}
+        for x in (s, s_off):
+            got = pyramid.bilinear_upsample_rows(x, 4, fh)
+            ref = plain(pyramid.bilinear_upsample_rows, x, 4, fh)
+            errs[rows_path(x)] = max_err(got, ref)
+            expect("pyramid_up_rows", errs[rows_path(x)], TOL["pyramid_up_rows"],
+                   f"f=4 {tuple(x.shape)} -> {fh} rows ({rows_path(x)} path; bit-equal: {torch.equal(got, ref)})")
+        by_frame[f"{fh}x{fw}"] = errs
+        if fh == h:
+            launch = lambda: pyramid.bilinear_upsample_rows(s, 4, h)  # noqa: E731
+            turns = in_turns({"16-byte": launch, "scalar": lambda: pyramid.bilinear_upsample_rows(s_off, 4, h)}, 10, 5)
+            up = {
+                "max_abs_err": errs["16-byte"],
+                "ms": med(launch, 20),
+                "plain_ms": med(lambda: plain(pyramid.bilinear_upsample_rows, s, 4, h), 5),
+                # read the /4 level, write 4x its rows; a lerp (3 FLOPs) per output
+                **bound(s.numel() * 4 * 5, s.numel() * 4 * 3),
+                "library_ms": med(lambda: F.interpolate(s[None], size=(s.shape[1] * 4, s.shape[2]), mode="bilinear",
+                                                        align_corners=False)[..., :h, :], 20),
+                "in_turns": turns,
+            }
+        del s_off
+    up["by_frame"] = by_frame
+    print(f"  pyramid_up_rows f=4 (3, {h // 4}, {w // 4}) -> {h} rows: in turns {up['in_turns']!r} ms; errors by "
+          f"frame and path {by_frame!r}")
     return down, up
 
 
@@ -919,10 +1003,11 @@ def main_path(device, codes, bundle, cfg, card: str, want: dict, label: str):
     return launches, timing, render
 
 
-def profile(render, label: str, n: int = 3) -> None:
+def profile(render, label: str, n: int = 3) -> dict:
     """Device time by kernel over n renders, and the device's idle share
     (torch.profiler); fails if a render copies anything from the host to
-    the device."""
+    the device, or more than D2H_PER_RENDER from the device to the host.
+    Returns the device ms per render of each kernel (by its profiler key)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -955,7 +1040,11 @@ def profile(render, label: str, n: int = 3) -> None:
     h2d = [(key, count) for _, key, count in rows if "HtoD" in key]
     if h2d:
         raise AssertionError(f"{label}: {n} renders copied host to device: {h2d}")
-    print(f"{label} profile: no host-to-device copy")
+    d2h = sum(count for _, key, count in rows if "DtoH" in key) / n
+    print(f"{label} profile: no host-to-device copy; {d2h!r} device-to-host copies per render")
+    if d2h > D2H_PER_RENDER:
+        raise AssertionError(f"{label}: {d2h} device-to-host copies per render, at most {D2H_PER_RENDER}")
+    return {key: t / n / 1e3 for t, key, _ in rows}
 
 
 # ------------------------------------------------------------ Processor
@@ -1221,8 +1310,12 @@ def main() -> int:
     launches, timing, render = main_path(
         device, codes, bundle, cfg, card, LAUNCHES_ON, "halation-on main path"
     )
-    profile(render, "halation-on main path")
+    by_kernel = profile(render, "halation-on main path")
     del render
+    # K1's and K12's device ms in the render (their checks above time them
+    # with CUDA events only)
+    for name, kernel in (("demosaic", "demosaic_kernel"), ("pyramid_up_rows", "upsample_rows_kernel")):
+        results[name]["device_ms_in_render"] = sum(t for key, t in by_kernel.items() if kernel in key)
     torch.cuda.empty_cache()
     launches_off, timing_off, _ = main_path(
         device, codes, bundle_off, cfg_off, card, LAUNCHES_OFF, "halation-off path"

@@ -15,20 +15,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from raw2film_tpu_torch.pipeline.render import RenderConfig
+from raw2film_tpu_torch.pipeline.render import RenderConfig, host_m_in
 
 
 def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
     """JAX bundle dict -> dict of float32 tensors on ``device``; tuple
-    leaves (the H&D curves) stay tuples."""
+    leaves (the H&D curves) stay tuples. Like ``make_film_bundle``'s, a
+    bundle with ``m_in`` also holds ``m_in_host``, its copy on the host."""
 
     def leaf(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
-    return {
+    out = {
         k: tuple(leaf(a) for a in v) if isinstance(v, tuple) else leaf(v)
         for k, v in jax_bundle.items()
     }
+    if "m_in" in jax_bundle:
+        out["m_in_host"] = host_m_in(np.asarray(jax_bundle["m_in"]))
+    return out
 
 
 def config_from_jax(cfg) -> RenderConfig:

@@ -7,15 +7,35 @@
 //
 // Bound on the H100: device memory. Per pixel it reads 2 bytes (u16) or 4
 // (f32) and writes 12 (three float32 planes); the arithmetic is ~40 flops.
+// One output per thread held it to half that bound: ~110 instructions a
+// pixel (the staging's division, two reflects and a 2-byte load per value,
+// 13 shared loads, all four interpolants, a runtime select and three
+// 4-byte stores) made it issue-bound.
 //
-// Design: one output pixel per thread. A block stages its tile plus the
-// 2-pixel halo in shared memory with coalesced row loads, so each mosaic
-// value is read from device memory about once. Reflect-101 at the frame
-// edges is index arithmetic (no padded copy). The normalize
-// clip01((x - black) * inv_range) is applied while staging. The four
-// interpolants use the grouped pair sums of the TPU kernel, so float32
-// rounding tracks the reference. With a matrix, the epilogue writes
-// max(M . clip01(rgb), 0) and the RGB image never reaches memory.
+// Design: a block of BX x BY threads stages a TH x TW tile plus the 2-pixel
+// halo in shared memory, normalizing as it stages
+// (clip01((x - black) * inv_range)); each thread then makes a run of 2 rows
+// x DX columns that starts on an even row and column, so the Bayer site of
+// every output is known at compile time (one instance per phase (ry, rx)).
+// For each of its rows it reads the 5 x (DX + 4) window (two 16-byte
+// shared loads a row) and computes for each output only the two
+// interpolants its site needs, with the grouped pair sums and the
+// expressions of the TPU kernel, so float32 rounding tracks the reference:
+//   R site: G = t_g, B = t_opp;  B site: G = t_g, R = t_opp;
+//   G on an R row: R = t_row, B = t_col;  G on a B row: R = t_col, B = t_row.
+// With a matrix, the epilogue writes max(M . clip01(rgb), 0) and the RGB
+// image never reaches memory.
+//
+// Two paths (the wrapper picks: ops/demosaic.py::vec_path). The 16-byte
+// path takes W a multiple of the values in 16 bytes (8 u16, 4 f32) and a
+// 16-byte aligned mosaic and output: interior tiles stage with 16-byte
+// loads and no reflect, and each plane's run goes out in 16-byte stores.
+// The general path serves every other shape: staging value by value with
+// reflect-101 (numpy's repeated reflect on frames of 2-5 pixels a side),
+// 4-byte stores. Edge tiles of the 16-byte path stage the same way. On the
+// H100, streaming stores (__stcs) tied with plain ones, runs of 2 x 8
+// (256-column tiles) measured 28 % slower and 32-row tiles 5 % slower
+// (scripts/k1_k12_variants.py).
 //
 // K11 half_size replaces raw2film_tpu/ops/pallas_pyramid.py::
 // half_size_decode_pallas: each 2x2 Bayer cell gives one RGB pixel,
@@ -30,87 +50,193 @@
 
 namespace {
 
-constexpr int R = 2;    // 5x5 stencil radius
-constexpr int TW = 32;  // tile width  (blockDim.x)
-constexpr int TH = 8;   // tile height (blockDim.y)
+constexpr int R = 2;            // 5x5 stencil radius
+constexpr int DX = 4;           // output columns per thread (2 rows each)
+constexpr int BX = 32;          // threads across a tile: one warp
+constexpr int BY = 8;           // warps down a tile
+constexpr int TW = BX * DX;     // tile width, 128
+constexpr int TH = 2 * BY;      // tile height, 16
+constexpr int SW = TW + 2 * R;  // staged window: columns x0 - 2 .. x0 + TW + 1
+constexpr int SH = TH + 2 * R;  // rows y0 - 2 .. y0 + TH + 1
+static_assert(DX % 4 == 0 && SW % 4 == 0, "runs and window rows must stay 16-byte aligned");
 
 struct Mat9 {
   float m[9];
 };
 
-template <typename T>
-__device__ __forceinline__ float load_px(const T* src, size_t idx, int norm,
-                                         float black, float inv_range) {
-  float v = static_cast<float>(src[idx]);
-  if (norm) v = fminf(fmaxf((v - black) * inv_range, 0.0f), 1.0f);
-  return v;
+__device__ __forceinline__ float normalize(float v, int norm, float black, float inv_range) {
+  return norm ? fminf(fmaxf((v - black) * inv_range, 0.0f), 1.0f) : v;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(TW* TH)
-    demosaic_kernel(const T* __restrict__ mosaic, float* __restrict__ out,
-                    int H, int W, int ry, int rx, int norm, float black,
-                    float inv_range, int has_mat, Mat9 mat) {
-  __shared__ float win[TH + 2 * R][TW + 2 * R];
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  for (int i = tid; i < (TH + 2 * R) * (TW + 2 * R); i += TW * TH) {
-    const int wy = i / (TW + 2 * R);
-    const int wx = i % (TW + 2 * R);
-    const int gy = r2f::reflect101(y0 + wy - R, H);
-    const int gx = r2f::reflect101(x0 + wx - R, W);
-    win[wy][wx] = load_px(mosaic, static_cast<size_t>(gy) * W + gx, norm,
-                          black, inv_range);
-  }
-  __syncthreads();
+__device__ __forceinline__ float load_px(const T* src, size_t idx, int norm,
+                                         float black, float inv_range) {
+  return normalize(static_cast<float>(src[idx]), norm, black, inv_range);
+}
 
-  const int x = x0 + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int cy = threadIdx.y + R;
-  const int cx = threadIdx.x + R;
-#define SH(dy, dx) win[cy + (dy)-R][cx + (dx)-R]
-  const float m = SH(2, 2);
-  const float h1 = SH(2, 1) + SH(2, 3);
-  const float v1 = SH(1, 2) + SH(3, 2);
-  const float h2 = SH(2, 0) + SH(2, 4);
-  const float v2 = SH(0, 2) + SH(4, 2);
-  const float dg = (SH(1, 1) + SH(1, 3)) + (SH(3, 1) + SH(3, 3));
-#undef SH
-  const float e = 0.125f;
-  const float hv2 = h2 + v2;
-  const float t_g = e * (4.0f * m + 2.0f * (h1 + v1) - hv2);
-  const float t_row = e * (5.0f * m + 4.0f * h1 - dg - h2 + 0.5f * v2);
-  const float t_col = e * (5.0f * m + 4.0f * v1 - dg - v2 + 0.5f * h2);
-  const float t_opp = e * (6.0f * m + 2.0f * dg - 1.5f * hv2);
-
-  // Bayer phase from the global row/column parity.
-  const int yy = y & 1;
-  const int xx = x & 1;
-  const bool is_r = yy == ry && xx == rx;
-  const bool is_b = yy == 1 - ry && xx == 1 - rx;
-  const bool g_r_row = yy == ry && xx == 1 - rx;
-  const bool g_b_row = yy == 1 - ry && xx == rx;
-  float r = is_r ? m : (g_r_row ? t_row : (g_b_row ? t_col : t_opp));
-  float g = (is_r || is_b) ? t_g : m;
-  float b = is_b ? m : (g_b_row ? t_row : (g_r_row ? t_col : t_opp));
-
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t o = static_cast<size_t>(y) * W + x;
-  if (has_mat) {
-    r = fminf(fmaxf(r, 0.0f), 1.0f);
-    g = fminf(fmaxf(g, 0.0f), 1.0f);
-    b = fminf(fmaxf(b, 0.0f), 1.0f);
+// One 16-byte chunk of the mosaic as floats: 8 u16 or 4 f32.
+__device__ __forceinline__ void load16(const uint16_t* p, float* v) {
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[c * plane + o] = fmaxf(
-          mat.m[3 * c] * r + mat.m[3 * c + 1] * g + mat.m[3 * c + 2] * b, 0.0f);
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = static_cast<float>(w[i] & 0xFFFFu);
+    v[2 * i + 1] = static_cast<float>(w[i] >> 16);
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// One 16-byte store of the output.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Stage window rows y0 - 2 .. y0 + TH + 1, columns x0 - 2 .. x0 + TW + 1.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage(float (*win)[SW], const T* __restrict__ mosaic, int H, int W,
+                                      int x0, int y0, int norm, float black, float inv_range) {
+  constexpr int CW = 16 / sizeof(T);  // values per 16-byte chunk
+  if (VEC && y0 >= R && y0 + TH + R <= H && x0 >= CW && x0 + TW + CW <= W) {
+    // Chunk k of a row holds columns x0 - CW + k CW ..: window column
+    // k CW - CW + R onwards. The first and last chunks carry the halo and
+    // store only its 2 columns; every store is 8- or 16-byte aligned.
+    constexpr int NCH = TW / CW + 2;
+    for (int i = threadIdx.y * BX + threadIdx.x; i < SH * NCH; i += BX * BY) {
+      const int r = i / NCH;
+      const int k = i - r * NCH;
+      float v[CW];
+      load16(mosaic + static_cast<size_t>(y0 - R + r) * W + (x0 - CW + k * CW), v);
+#pragma unroll
+      for (int j = 0; j < CW; ++j) v[j] = normalize(v[j], norm, black, inv_range);
+      float* row = win[r] + (k * CW - CW + R);
+      if (k > 0) *reinterpret_cast<float2*>(row) = make_float2(v[0], v[1]);
+      if constexpr (CW == 8) {
+        if (k > 0 && k < NCH - 1) *reinterpret_cast<float4*>(row + 2) = make_float4(v[2], v[3], v[4], v[5]);
+        if (k < NCH - 1) *reinterpret_cast<float2*>(row + 6) = make_float2(v[6], v[7]);
+      } else {
+        if (k < NCH - 1) *reinterpret_cast<float2*>(row + 2) = make_float2(v[2], v[3]);
+      }
     }
   } else {
-    out[o] = r;
-    out[plane + o] = g;
-    out[2 * plane + o] = b;
+    for (int r = threadIdx.y; r < SH; r += BY) {
+      const T* src = mosaic + static_cast<size_t>(r2f::reflect101(y0 - R + r, H)) * W;
+      for (int c = threadIdx.x; c < SW; c += BX)
+        win[r][c] = load_px(src, r2f::reflect101(x0 - R + c, W), norm, black, inv_range);
+    }
+  }
+}
+
+// (RY, RX): the red site's row and column parity.
+template <typename T, bool VEC, int RY, int RX>
+__global__ void __launch_bounds__(BX* BY)
+    demosaic_kernel(const T* __restrict__ mosaic, float* __restrict__ out, int H, int W,
+                    int norm, float black, float inv_range, int has_mat, Mat9 mat) {
+  __shared__ __align__(16) float win[SH][SW];
+  const int x0 = blockIdx.x * TW;
+  const int y0 = blockIdx.y * TH;
+  stage<T, VEC>(win, mosaic, H, W, x0, y0, norm, black, inv_range);
+  __syncthreads();
+
+  const int x = x0 + DX * threadIdx.x;
+  const int y = y0 + 2 * threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t plane = static_cast<size_t>(H) * W;
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+    if (y + dy >= H) break;
+    // window rows y + dy - 2 .. y + dy + 2, columns x - 2 .. x + DX + 1
+    float v[5][DX + 4];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float* row = &win[2 * threadIdx.y + dy + i][DX * threadIdx.x];
+#pragma unroll
+      for (int j = 0; j < DX + 4; j += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(row + j);
+        v[i][j] = q.x;
+        v[i][j + 1] = q.y;
+        v[i][j + 2] = q.z;
+        v[i][j + 3] = q.w;
+      }
+    }
+    float o[3][DX];
+#pragma unroll
+    for (int dx = 0; dx < DX; ++dx) {
+      const int cx = dx + R;
+      const float m = v[2][cx];
+      const float h1 = v[2][cx - 1] + v[2][cx + 1];
+      const float v1 = v[1][cx] + v[3][cx];
+      const float h2 = v[2][cx - 2] + v[2][cx + 2];
+      const float v2 = v[0][cx] + v[4][cx];
+      const float dg = (v[1][cx - 1] + v[1][cx + 1]) + (v[3][cx - 1] + v[3][cx + 1]);
+      const float e = 0.125f;
+      const bool r_row = dy == RY;         // compile-time after unrolling
+      const bool r_col = (dx & 1) == RX;
+      float r, g, b;
+      if (r_row == r_col) {  // R or B site
+        const float hv2 = h2 + v2;
+        const float t_g = e * (4.0f * m + 2.0f * (h1 + v1) - hv2);
+        const float t_opp = e * (6.0f * m + 2.0f * dg - 1.5f * hv2);
+        g = t_g;
+        r = r_row ? m : t_opp;
+        b = r_row ? t_opp : m;
+      } else {  // G site
+        const float t_row = e * (5.0f * m + 4.0f * h1 - dg - h2 + 0.5f * v2);
+        const float t_col = e * (5.0f * m + 4.0f * v1 - dg - v2 + 0.5f * h2);
+        g = m;
+        r = r_row ? t_row : t_col;
+        b = r_row ? t_col : t_row;
+      }
+      if (has_mat) {
+        r = fminf(fmaxf(r, 0.0f), 1.0f);
+        g = fminf(fmaxf(g, 0.0f), 1.0f);
+        b = fminf(fmaxf(b, 0.0f), 1.0f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          o[c][dx] = fmaxf(mat.m[3 * c] * r + mat.m[3 * c + 1] * g + mat.m[3 * c + 2] * b, 0.0f);
+      } else {
+        o[0][dx] = r;
+        o[1][dx] = g;
+        o[2][dx] = b;
+      }
+    }
+    float* dst = out + static_cast<size_t>(y + dy) * W + x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (VEC) {
+#pragma unroll
+        for (int j = 0; j < DX; j += 4) store4(dst + c * plane + j, &o[c][j]);
+      } else {
+#pragma unroll
+        for (int dx = 0; dx < DX; ++dx)
+          if (x + dx < W) dst[c * plane + dx] = o[c][dx];
+      }
+    }
+  }
+}
+
+template <typename T, bool VEC>
+void launch_demosaic(const T* mosaic, float* out, int H, int W, int ry, int rx, int norm,
+                     float black, float inv_range, int has_mat, const Mat9& m, cudaStream_t s) {
+  const dim3 block(BX, BY);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  switch (2 * ry + rx) {
+    case 0:
+      demosaic_kernel<T, VEC, 0, 0><<<grid, block, 0, s>>>(mosaic, out, H, W, norm, black, inv_range, has_mat, m);
+      break;
+    case 1:
+      demosaic_kernel<T, VEC, 0, 1><<<grid, block, 0, s>>>(mosaic, out, H, W, norm, black, inv_range, has_mat, m);
+      break;
+    case 2:
+      demosaic_kernel<T, VEC, 1, 0><<<grid, block, 0, s>>>(mosaic, out, H, W, norm, black, inv_range, has_mat, m);
+      break;
+    default:
+      demosaic_kernel<T, VEC, 1, 1><<<grid, block, 0, s>>>(mosaic, out, H, W, norm, black, inv_range, has_mat, m);
   }
 }
 
@@ -156,25 +282,33 @@ R2F_API int r2f_half_size(const void* mosaic, int is_u16, float* out, int H, int
 }
 
 // mosaic: (H, W) uint16 (is_u16=1) or float32; out: (3, H, W) float32.
-// mat: 9 host floats, row-major, or null for the plain RGB output.
+// mat: 9 host floats, row-major, or null for the plain RGB output. vec: the
+// 16-byte path, which takes W a multiple of 8 (u16) or 4 (f32) and a
+// 16-byte aligned mosaic and out; 0: the general path, any shape.
 R2F_API int r2f_demosaic(const void* mosaic, int is_u16, float* out, int H,
                          int W, int ry, int rx, int norm, float black,
-                         float inv_range, const float* mat, void* stream) {
+                         float inv_range, const float* mat, int vec, void* stream) {
+  if (H < 1 || W < 1 || ((ry | rx) & ~1) != 0 ||
+      (vec && (W % (is_u16 ? 8 : 4) != 0 || (reinterpret_cast<uintptr_t>(mosaic) & 15) != 0 ||
+               (reinterpret_cast<uintptr_t>(out) & 15) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Mat9 m{};
   const int has_mat = mat != nullptr;
   if (has_mat)
     for (int i = 0; i < 9; ++i) m.m[i] = mat[i];
-  const dim3 block(TW, TH);
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_u16) {
-    demosaic_kernel<uint16_t><<<grid, block, 0, s>>>(
-        static_cast<const uint16_t*>(mosaic), out, H, W, ry, rx, norm, black,
-        inv_range, has_mat, m);
+    const auto* src = static_cast<const uint16_t*>(mosaic);
+    if (vec)
+      launch_demosaic<uint16_t, true>(src, out, H, W, ry, rx, norm, black, inv_range, has_mat, m, s);
+    else
+      launch_demosaic<uint16_t, false>(src, out, H, W, ry, rx, norm, black, inv_range, has_mat, m, s);
   } else {
-    demosaic_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(mosaic), out, H, W, ry, rx, norm, black,
-        inv_range, has_mat, m);
+    const auto* src = static_cast<const float*>(mosaic);
+    if (vec)
+      launch_demosaic<float, true>(src, out, H, W, ry, rx, norm, black, inv_range, has_mat, m, s);
+    else
+      launch_demosaic<float, false>(src, out, H, W, ry, rx, norm, black, inv_range, has_mat, m, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

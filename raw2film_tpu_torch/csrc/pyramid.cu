@@ -13,8 +13,10 @@
 // rows q + b_m and q + b_m + 1 (each clamped to [0, h - 1]) with weights
 // 1 - frac_m and frac_m, where rel = (m + 0.5) / f - 0.5, b_m = floor(rel)
 // and frac_m = rel - b_m are taken in double precision and rounded to
-// float32, as the host builds the TPU kernel's lerp matrix. For f = 4 the
-// weights are exact: 0.125, 0.375, 0.625, 0.875.
+// float32, as the host builds the TPU kernel's lerp matrix (the phase
+// table below). Where the clamp folds both taps onto one row, the first
+// weight is their float32 sum and the second 0, as in the lerp matrix. For
+// f = 4 the weights are exact: 0.125, 0.375, 0.625, 0.875.
 //
 // K13 upsample replaces pallas_pyramid.py::bilinear_upsample_pallas: the
 // 2-D x f half-pixel lerp with edge clamp, cropped to (oh, ow), for any
@@ -44,8 +46,24 @@
 // order (each column top to bottom, the columns left to right, then x
 // float32(1/f^2)). The one-thread-per-output kernel serves every other
 // shape (the resize's other integer shrinks among them); the wrapper picks
-// by shape and alignment. K12: one thread per output, consecutive threads
-// on consecutive output columns.
+// by shape and alignment.
+//
+// K12's design, the row half of K13's: the phase table comes by value, so
+// no output divides (one thread per output paid an integer division and
+// modulo by f and a float64 division and floor for its phase). A thread
+// owns UP_RUN = 4 consecutive columns and walks ROWS_RPT = 4 consecutive
+// output rows, stepping the phase by increments; it loads its two input
+// rows only where the row pair changes and keeps the shared row where the
+// pair slides by one (at f = 4, 3 loads for 4 output rows away from the
+// edges). Where w % 4 == 0 and both buffers are 16-byte aligned
+// (ops/pyramid.py::rows_vec_path), the rows come as 16-byte __ldg loads and
+// each output run goes out as one 16-byte store; else 4 scalar ones. Each
+// output is fma(w1, b, w0 a), rounded as the lerp matrix's product
+// accumulates its row (row r0 first, the zeros exact), so that a compiler's
+// choice of which product to fuse cannot move it by an ulp. On the
+// H100, runs of 4 rows measured 4 % faster than runs of 8 and 14 % faster
+// than runs of 16, and streaming stores (__stcs) tied with plain ones
+// (scripts/k1_k12_variants.py).
 //
 // K13's design: the f phase weights and offsets come by value in the launch
 // (Phases, built once per f on the host in float64 and rounded to float32,
@@ -67,7 +85,8 @@ constexpr int UP_MAX_F = 64;
 constexpr int UP_RUN = 4;     // output columns per thread
 constexpr int UP_BX = 32;     // blockDim.x: a warp's threads share their rows
 constexpr int UP_BY = 8;      // blockDim.y
-constexpr int UP_RPT = 8;     // consecutive output rows per thread
+constexpr int UP_RPT = 8;     // K13's consecutive output rows per thread
+constexpr int ROWS_RPT = 4;   // K12's consecutive output rows per thread
 constexpr int BOX_RUN = 2;    // K10's 16-byte path: consecutive outputs per thread
 
 // The x f lerp's phases: output o = q f + m reads input q + base[m] with
@@ -91,6 +110,7 @@ using r2f::UP_BY;
 using r2f::UP_MAX_F;
 using r2f::UP_RPT;
 using r2f::UP_RUN;
+using r2f::ROWS_RPT;
 
 
 __global__ void box_downsample_kernel(const float* __restrict__ img,
@@ -173,25 +193,75 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__global__ void upsample_rows_kernel(const float* __restrict__ img,
-                                     float* __restrict__ out, int h, int w,
-                                     int f, int oh) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int o = blockIdx.y * blockDim.y + threadIdx.y;
+// UP_RUN consecutive values of a row: one 16-byte load (VEC), or the first
+// n of them one by one, the rest 0.
+template <bool VEC>
+__device__ __forceinline__ void load_run(const float* p, int n, float* v) {
+  if (VEC) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < UP_RUN; ++k) v[k] = k < n ? __ldg(p + k) : 0.0f;
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(UP_BX * UP_BY)
+    upsample_rows_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w,
+                         int oh, const __grid_constant__ Phases p) {
+  const int x0 = static_cast<int>(blockIdx.x * UP_BX + threadIdx.x) * UP_RUN;
+  const int y0 = static_cast<int>(blockIdx.y * UP_BY + threadIdx.y) * ROWS_RPT;
+  if (x0 >= w || y0 >= oh) return;
   const int c = blockIdx.z;
-  if (x >= w || o >= oh) return;
-  const int m = o % f;
-  const double rel = (m + 0.5) / f - 0.5;
-  const double base = floor(rel);
-  const double frac = rel - base;
-  const int i0 = o / f + static_cast<int>(base);
-  const int r0 = min(max(i0, 0), h - 1);
-  const int r1 = min(max(i0 + 1, 0), h - 1);
-  const float* src = img + static_cast<size_t>(c) * h * w + x;
-  const float w0 = static_cast<float>(1.0 - frac);
-  const float w1 = static_cast<float>(frac);
-  out[(static_cast<size_t>(c) * oh + o) * w + x] =
-      w0 * src[static_cast<size_t>(r0) * w] + w1 * src[static_cast<size_t>(r1) * w];
+  const int n = min(UP_RUN, w - x0);
+  const float* src = img + static_cast<size_t>(c) * h * w + x0;
+  float* dst = out + static_cast<size_t>(c) * oh * w + x0;
+  const int y_end = min(oh, y0 + ROWS_RPT);
+  int q = y0 / p.f;
+  int m = y0 - q * p.f;
+  int pr0 = -1, pr1 = -1;
+  float a[UP_RUN], b[UP_RUN];  // input rows r0 and r1
+  for (int y = y0; y < y_end; ++y) {
+    const int base = q + p.base[m];
+    const int r0 = min(max(base, 0), h - 1);
+    const int r1 = min(max(base + 1, 0), h - 1);
+    float w0 = p.w0[m];
+    float w1 = p.w1[m];
+    if (r0 == r1) {
+      w0 = w0 + w1;
+      w1 = 0.0f;
+    }
+    if (r0 != pr0 || r1 != pr1) {
+      if (r0 == pr1) {
+#pragma unroll
+        for (int k = 0; k < UP_RUN; ++k) a[k] = b[k];
+      } else {
+        load_run<VEC>(src + static_cast<size_t>(r0) * w, n, a);
+      }
+      load_run<VEC>(src + static_cast<size_t>(r1) * w, n, b);
+      pr0 = r0;
+      pr1 = r1;
+    }
+    float v[UP_RUN];
+#pragma unroll
+    for (int k = 0; k < UP_RUN; ++k) v[k] = __fmaf_rn(w1, b[k], __fmul_rn(w0, a[k]));
+    float* o = dst + static_cast<size_t>(y) * w;
+    if (VEC) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < UP_RUN; ++k)
+        if (k < n) o[k] = v[k];
+    }
+    if (++m == p.f) {
+      m = 0;
+      ++q;
+    }
+  }
 }
 
 // Taps of output o on a length-n input axis, clamped and folded.
@@ -319,13 +389,23 @@ R2F_API int r2f_box_downsample(const float* img, float* out, int C, int H, int W
   return static_cast<int>(cudaGetLastError());
 }
 
-// img: (C, h, w) float32; out: (C, oh, w) float32, oh <= h * f.
-R2F_API int r2f_upsample_rows(const float* img, float* out, int C, int h, int w,
-                              int f, int oh, void* stream) {
-  if (f < 1 || oh > h * f) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(64, 4);
-  const dim3 grid((w + 63) / 64, (oh + 3) / 4, C);
-  upsample_rows_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, out, h, w, f, oh);
+// img: (C, h, w) float32; out: (C, oh, w) float32, oh <= h f; phases: the
+// host-built table for f. vec: the 16-byte path, which takes w % 4 == 0 and
+// a 16-byte aligned img and out; 0: scalar loads and stores, any shape.
+R2F_API int r2f_upsample_rows(const float* img, float* out, int C, int h, int w, int oh,
+                              const Phases* phases, int vec, void* stream) {
+  const int f = phases->f;
+  if (f < 1 || f > UP_MAX_F || oh < 1 || w < 1 || oh > h * f ||
+      (vec && (w % 4 != 0 || (reinterpret_cast<uintptr_t>(img) & 15) != 0 ||
+               (reinterpret_cast<uintptr_t>(out) & 15) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(UP_BX, UP_BY);
+  const dim3 grid((w + UP_BX * UP_RUN - 1) / (UP_BX * UP_RUN),
+                  (oh + UP_BY * ROWS_RPT - 1) / (UP_BY * ROWS_RPT), C);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    upsample_rows_kernel<true><<<grid, block, 0, s>>>(img, out, h, w, oh, *phases);
+  else
+    upsample_rows_kernel<false><<<grid, block, 0, s>>>(img, out, h, w, oh, *phases);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P),
     "r2f_half_size": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "r2f_sep_rank": (_P, _P, _P, _P, _P, _P, _P),
     "r2f_hash_words": (_P, _P, _I, _I, _I, _I, _I, _U, _U, _P),
@@ -60,7 +60,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "r2f_box_downsample": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "r2f_upsample_rows": (_P, _P, _I, _I, _I, _I, _P, _I, _P),
     "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r2f_grain_apply": (_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P),
     "r2f_grain_field": (_P, _I, _I, _I, _U, _U, _P, _I, _P),

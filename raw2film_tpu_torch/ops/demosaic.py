@@ -94,8 +94,16 @@ def demosaic_plain(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) -
     )
 
 
+def vec_path(w: int, dtype: torch.dtype, *ptrs: int) -> bool:
+    """Whether K1 takes its 16-byte path: W a multiple of the values in 16
+    bytes (8 uint16, 4 float32), the mosaic and output 16-byte aligned;
+    otherwise its general path (any shape)."""
+    return w % (8 if dtype == torch.uint16 else 4) == 0 and all(p % 16 == 0 for p in ptrs)
+
+
 def demosaic_kernel(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) -> torch.Tensor:
-    """K1 wrapper: (H, W) uint16 or float32 on the card -> (3, H, W) float32."""
+    """K1 wrapper: (H, W) uint16 or float32 on the card -> (3, H, W) float32.
+    The kernel's path follows :func:`vec_path`."""
     if not kb.use_kernel(bayer):
         return demosaic_plain(bayer, ry, rx, mat, norm)
     kb.require(bayer, "mosaic", (torch.uint16, torch.float32))
@@ -107,11 +115,12 @@ def demosaic_kernel(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) 
     mat_arg = None
     if mat is not None:
         mat_arg = (ctypes.c_float * 9)(*np.asarray(mat, np.float32).reshape(9).tolist())
+    src, dst = bayer.data_ptr(), out.data_ptr()
     err = kb.lib().r2f_demosaic(
-        bayer.data_ptr(), int(bayer.dtype == torch.uint16), out.data_ptr(), h, w,
+        src, int(bayer.dtype == torch.uint16), dst, h, w,
         ry, rx, int(pair is not None), *(pair or (0.0, 1.0)),
         ctypes.cast(mat_arg, ctypes.c_void_p) if mat_arg is not None else None,
-        kb.stream_ptr(bayer),
+        int(vec_path(w, bayer.dtype, src, dst)), kb.stream_ptr(bayer),
     )
     kb.check(err, "r2f_demosaic")
     kb.launches["demosaic"] += 1

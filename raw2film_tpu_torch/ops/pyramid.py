@@ -111,8 +111,16 @@ def bilinear_upsample_rows_plain(img: torch.Tensor, f: int, oh: int | None = Non
     return torch.matmul(uh, img)
 
 
+def rows_vec_path(w: int, *ptrs: int) -> bool:
+    """Whether K12 takes its 16-byte path (w a multiple of 4, the input and
+    output 16-byte aligned); otherwise scalar loads and stores."""
+    return w % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
 def bilinear_upsample_rows(img: torch.Tensor, f: int, oh: int | None = None) -> torch.Tensor:
-    """K12 wrapper: (C, h, w) float32 -> (C, oh, w), oh <= h * f."""
+    """K12 wrapper: (C, h, w) float32 -> (C, oh, w), oh <= h * f. The
+    kernel takes the phase table of f by value (:func:`phases`, f <= 64)
+    and its path follows :func:`rows_vec_path`."""
     f = int(f)
     if f < 1:
         raise ValueError(f"row upsample: factor {f}")
@@ -126,9 +134,11 @@ def bilinear_upsample_rows(img: torch.Tensor, f: int, oh: int | None = None) -> 
     if img.dim() != 3:
         raise ValueError(f"img: want (C, h, w), got {tuple(img.shape)}")
     c, _, w = img.shape
+    table = phases(f)
     out = torch.empty((c, oh, w), dtype=torch.float32, device=img.device)
+    src, dst = img.data_ptr(), out.data_ptr()
     err = kb.lib().r2f_upsample_rows(
-        img.data_ptr(), out.data_ptr(), c, hs, w, f, oh, kb.stream_ptr(img)
+        src, dst, c, hs, w, oh, ctypes.byref(table), int(rows_vec_path(w, src, dst)), kb.stream_ptr(img)
     )
     kb.check(err, "r2f_upsample_rows")
     kb.launches["pyramid_up_rows"] += 1
@@ -165,7 +175,7 @@ class Phases(ctypes.Structure):
 
 @lru_cache(maxsize=16)
 def phases(f: int) -> Phases:
-    """K13's phase table for factor f: the weights of :func:`lerp_taps`,
+    """K12's and K13's phase table for factor f: the weights of :func:`lerp_taps`,
     taken in float64 per phase and rounded to float32 (cached, read-only
     by convention: the kernel gets a copy at each launch)."""
     if not 1 <= f <= UP_MAX_F:

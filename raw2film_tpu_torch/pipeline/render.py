@@ -21,7 +21,8 @@ LUT raises NotImplementedError (not ported); no stage is ever skipped
 silently.
 
 Planar (3, H, W) float32 at every public function; the film parameters are
-a dict of float32 tensors (:func:`make_film_bundle`), the static choices a
+a dict of float32 tensors and a host copy of the input matrix
+(:func:`make_film_bundle`), the static choices a
 :class:`RenderConfig`. The grain seed is a uint32 integer.
 """
 
@@ -89,13 +90,15 @@ def make_film_bundle(
     device=None,
 ) -> dict:
     """Pack the calibrated chain (film/chain.py parameter records) into a
-    dict of float32 tensors with the JAX bundle's keys and shapes."""
+    dict of float32 tensors with the JAX bundle's keys and shapes, plus
+    ``m_in_host`` (:func:`host_m_in`)."""
 
     def dev(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
     return {
         "m_in": dev(neg_p.m_in),
+        "m_in_host": host_m_in(neg_p.m_in),
         "flare": dev(neg_p.flare),
         "neg_curve": tuple(dev(c) for c in neg_p.curve),
         "mask": dev(neg_p.mask),
@@ -120,12 +123,25 @@ def make_film_bundle(
     }
 
 
+def host_m_in(m_in) -> np.ndarray:
+    """The bundle's ``m_in_host``: a read-only float32 numpy copy of the
+    input matrix, made from the host array the bundle's ``m_in`` is made
+    from. The fused path folds the camera matrix into it on the host, so a
+    render reads no matrix back from the device."""
+    host = np.array(m_in, np.float32)
+    host.setflags(write=False)
+    return host
+
+
 def bundle_to(bundle: dict, device) -> dict:
-    """The bundle with every tensor on ``device``."""
-    return {
-        k: tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device)
-        for k, v in bundle.items()
-    }
+    """The bundle with every tensor on ``device`` (host copies stay)."""
+
+    def to(v):
+        if isinstance(v, tuple):
+            return tuple(t.to(device) for t in v)
+        return v.to(device) if isinstance(v, torch.Tensor) else v
+
+    return {k: to(v) for k, v in bundle.items()}
 
 
 def build_render_config(neg, prt, prt_mode: str, scale: float, merged: dict) -> RenderConfig:
@@ -357,7 +373,7 @@ def render_chain_from_mosaic(
     device = torch.device(device) if device is not None else require_cuda()
     mosaic = torch.as_tensor(mosaic, device=device).contiguous()
     b = bundle_to(bundle, device)
-    mat = fold_input_matrix(b["m_in"], cam_to_xyz, exposure_gain)
+    mat = fold_input_matrix(b["m_in_host"], cam_to_xyz, exposure_gain)
     ep = dm.demosaic_exposure(mosaic, pattern, mat, norm=norm)
     if crop is not None:
         y0, x0, ch, cw = crop

@@ -10,14 +10,16 @@ power limit, then one JSON line:
 - K2's MTF + grain launch (45 MP, 3 x 4 ranks x 23 taps, 3 grain taps) and
   its /4 small blur (3 x 1368 x 2052, ranks of 15 and 27 taps); K3 with and
   without the burn; K14 (4 ranks x 27 taps, the development); K10 at f = 4;
-  each held to its plain version first, then timed (CUDA events, median of
-  20 calls) and profiled (device time per launch, host-to-device copies);
+  K12 (the /4 level back to 5472 rows); K1 (the 45 MP uint16 mosaic with the
+  normalize and a matrix); each held to its plain version first, then timed
+  (CUDA events, median of 20 calls) and profiled (device time per launch,
+  host-to-device and device-to-host copies);
 - K4 on the preview's MTF stack (3 x 540 x 360) and its grouped F.conv2d,
   in turns (one call per event pair);
 - the 45 MP render with halation on and off: held to the plain versions
   (max code difference), median and best of 10 after 2 warm-ups (CUDA
-  events), device ms per render and host-to-device copies per render under
-  torch.profiler, peak device memory;
+  events), device ms per render (and the ten costliest kernels) and the
+  copies each way per render under torch.profiler, peak device memory;
 - process() of a seeded 45 MP DNG at the CLI default (a) and at full
   resolution (b): host clock, median of 5 after one warm-up.
 
@@ -83,6 +85,7 @@ def profiled(fn, n: int, kernel: str | None = None) -> dict:
     return {
         "device_ms": sum(t for _, _, t in mine) / 1e3 / n,
         "h2d_per_call": sum(c for k, c, _ in rows if "HtoD" in k) / n,
+        "d2h_per_call": sum(c for k, c, _ in rows if "DtoH" in k) / n,
         "top": [[k[:60], c // n, t / 1e3 / n] for k, c, t in top] if kernel is None else None,
     }
 
@@ -108,6 +111,7 @@ def main() -> int:
     from raw2film_tpu_torch.io import dng
     from raw2film_tpu_torch.kernels import build as kb
     from raw2film_tpu_torch.ops import burn as burn_ops
+    from raw2film_tpu_torch.ops import demosaic as dm
     from raw2film_tpu_torch.ops import grain as grain_ops
     from raw2film_tpu_torch.ops import halation as hal_ops
     from raw2film_tpu_torch.ops import mtf as mtf_ops
@@ -156,7 +160,12 @@ def main() -> int:
     hargs = (d, us, vs, rows_up, hal_ops.colour_factors(bundle, False), hal_ops.develop_vector(bundle))
     kernel("k14", lambda: hal_ops.halation_mega(*hargs), 2e-5, "halation_kernel")
     kernel("k10_f4", lambda: pyramid.box_downsample_pyramid(d, 4), 1e-6, "box_downsample")
+    kernel("k12", lambda: pyramid.bilinear_upsample_rows(sm, 4, H), 2e-6, "upsample_rows_kernel")
     del d, sm, rows_up, hargs, burn
+    codes = mosaic_codes(H, W, SEED, dev)
+    mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
+    kernel("k1", lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM), 2e-6, "demosaic_kernel")
+    del codes
 
     _, cfg15 = load_film_bundle(h=540, w=360, device=dev, grain=2, sharpness=True)
     p3, q3 = mtf_ops.mtf_taps(cfg15.mtf_key, cfg15.scale)

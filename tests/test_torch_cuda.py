@@ -49,6 +49,92 @@ def test_demosaic_kernel(cuda):
     assert (got - ref).abs().max().item() <= 2e-6
 
 
+_MAT = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
+
+
+def _mosaic(kind, shape, cuda, seed=0, offset=0):
+    """(mosaic, norm): uint16 sensor codes with their normalize, small
+    uint16 codes without it (0-3: the interpolants stay exact), or float32
+    in [0, 1] (or codes, with the normalize); laid ``offset`` elements into
+    its storage."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = shape[0] * shape[1]
+    if kind == "u16":
+        flat, norm = torch.randint(0, 4, (n + offset,), generator=g, device=cuda).to(torch.uint16), None
+    elif kind == "u16-norm":
+        flat = torch.randint(0, 16000, (n + offset,), generator=g, device=cuda).to(torch.uint16)
+        norm = (256.0, 1.0 / 15000.0)
+    elif kind == "f32":
+        flat, norm = torch.rand(n + offset, generator=g, device=cuda), None
+    else:
+        flat, norm = torch.rand(n + offset, generator=g, device=cuda) * 16000.0, (256.0, 1.0 / 15000.0)
+    return flat[offset:].view(shape), norm
+
+
+def _demosaic_case(x, pattern, norm, mat):
+    if mat is None:
+        got = _launched("demosaic", dm.demosaic_mhc, x, pattern, norm)
+        ref = _plain(dm.demosaic_mhc, x, pattern, norm)
+    else:
+        got = _launched("demosaic", dm.demosaic_exposure, x, pattern, mat, norm)
+        ref = _plain(dm.demosaic_exposure, x, pattern, mat, norm)
+    assert tuple(got.shape) == (3, *x.shape)
+    assert (got - ref).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("with_mat", [False, True], ids=["rgb", "mat"])
+@pytest.mark.parametrize("kind", ["u16", "u16-norm", "f32", "f32-norm"])
+@pytest.mark.parametrize("pattern", list(dm.PATTERNS))
+def test_demosaic_kernel_phases(cuda, pattern, kind, with_mat):
+    """K1's four phase instances, uint16 and float32, with and without the
+    normalize and the matrix, on a 49 x 392 frame: its 16-byte path, with
+    interior tiles (16-byte staging) beside the edge ones."""
+    x, norm = _mosaic(kind, (49, 392), cuda, seed=len(kind))
+    out = torch.empty((3, 49, 392), device=cuda)
+    assert dm.vec_path(392, x.dtype, x.data_ptr(), out.data_ptr())
+    _demosaic_case(x, pattern, norm, _MAT if with_mat else None)
+
+
+@pytest.mark.parametrize("kind", ["u16-norm", "f32"])
+@pytest.mark.parametrize("w", [67, 66, 64, 392, 8207])
+def test_demosaic_kernel_widths(cuda, w, kind):
+    """Widths on the 16-byte path (64 and 392; 66 for neither dtype) and on
+    the general one (67, 66, 8207)."""
+    x, norm = _mosaic(kind, (45, w), cuda, seed=w)
+    assert dm.vec_path(w, x.dtype, x.data_ptr(), x.data_ptr()) == (w in (64, 392))
+    _demosaic_case(x, "GRBG", norm, _MAT)
+
+
+@pytest.mark.parametrize("kind,offset", [("u16-norm", 1), ("u16-norm", 2), ("u16-norm", 8), ("f32", 1), ("f32", 4)])
+def test_demosaic_kernel_unaligned(cuda, kind, offset):
+    """A contiguous mosaic view that starts 1, 2, 4 or 8 values into its
+    storage: the general path unless 16-byte aligned (u16 offset 8, f32
+    offset 4)."""
+    x, norm = _mosaic(kind, (49, 392), cuda, seed=offset, offset=offset)
+    assert x.is_contiguous()
+    assert dm.vec_path(392, x.dtype, x.data_ptr(), 0) == (x.data_ptr() % 16 == 0)
+    _demosaic_case(x, "RGGB", norm, _MAT)
+
+
+@pytest.mark.parametrize("kind", ["u16-norm", "f32"])
+@pytest.mark.parametrize("hw", [(2, 2), (2, 5), (3, 3), (4, 5), (5, 2), (5, 5)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_demosaic_kernel_small_frames(cuda, hw, kind):
+    """Frames of 2-5 pixels a side: the 5 x 5 stencil reflects more than
+    once (numpy's repeated reflect-101)."""
+    x, norm = _mosaic(kind, hw, cuda, seed=hw[0] * 10 + hw[1])
+    _demosaic_case(x, "BGGR", norm, None)
+    _demosaic_case(x, "GBRG", norm, _MAT)
+
+
+@pytest.mark.parametrize("hw", [(15, 127), (17, 129), (31, 255), (33, 257), (17, 136), (33, 264), (16, 128), (32, 256)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_demosaic_kernel_tile_edges(cuda, hw):
+    """H and W one off the 16 x 128 tile (and 8 columns off, on the 16-byte
+    path), and on it."""
+    x, norm = _mosaic("u16-norm", hw, cuda, seed=hw[1])
+    _demosaic_case(x, "RGGB", norm, _MAT)
+
+
 def test_sep_rank_grain_kernel(cuda):
     rng = np.random.default_rng(0)
     u = rng.normal(size=(3, 4, 23)).astype(np.float32) * 0.05
@@ -173,6 +259,31 @@ def test_upsample_rows_kernel(cuda, f, oh):
     x = torch.rand((3, 11, 29), device=cuda) * 3.0
     got = _launched("pyramid_up_rows", pyramid.bilinear_upsample_rows, x, f, oh)
     assert (got - _plain(pyramid.bilinear_upsample_rows, x, f, oh)).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize(
+    "shape,f,oh",
+    [((3, 11, 32), 4, 41), ((3, 40, 2052), 4, None), ((2, 9, 30), 3, 25), ((1, 7, 64), 8, 53), ((2, 13, 37), 8, None),
+     ((3, 20, 100), 3, 58)],
+)
+def test_upsample_rows_kernel_paths(cuda, shape, f, oh):
+    """K12's 16-byte path (w % 4 == 0) and its scalar one, oh not a
+    multiple of f, f = 3 and 8; runs of 8 rows across the row pairs."""
+    x = torch.rand(shape, device=cuda) * 3.0
+    assert pyramid.rows_vec_path(shape[2], x.data_ptr(), x.data_ptr()) == (shape[2] % 4 == 0)
+    got = _launched("pyramid_up_rows", pyramid.bilinear_upsample_rows, x, f, oh)
+    assert (got - _plain(pyramid.bilinear_upsample_rows, x, f, oh)).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_upsample_rows_unaligned(cuda, offset):
+    """A contiguous view 1, 2 or 4 floats into its storage: the scalar path
+    unless 16-byte aligned."""
+    base = torch.rand(3 * 11 * 32 + 4, device=cuda) * 3.0
+    x = base[offset: offset + 3 * 11 * 32].view(3, 11, 32)
+    assert pyramid.rows_vec_path(32, x.data_ptr(), 0) == (offset % 4 == 0)
+    got = _launched("pyramid_up_rows", pyramid.bilinear_upsample_rows, x, 4, 41)
+    assert (got - _plain(pyramid.bilinear_upsample_rows, x, 4, 41)).abs().max().item() <= 2e-6
 
 
 @pytest.mark.parametrize("develop", [False, True], ids=["exposure", "density"])

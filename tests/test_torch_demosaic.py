@@ -97,6 +97,85 @@ def test_small_frames_reflect_like_numpy():
     assert np.abs(got - ref).max() <= TOL
 
 
+def _reflect101(i: int, n: int) -> int:
+    """csrc/common.cuh::reflect101 (C's remainder, then the fold)."""
+    if 0 <= i < n:
+        return i
+    if n == 1:
+        return 0
+    period = 2 * (n - 1)
+    i = int(np.fmod(i, period))
+    if i < 0:
+        i += period
+    return period - i if i >= n else i
+
+
+def _k1_emulate(x: np.ndarray, ry: int, rx: int, mat, norm) -> np.ndarray:
+    """K1 as csrc/demosaic.cu computes it, in numpy float32: the window
+    staged by reflect101 and normalized while staging; runs of 2 rows x 4
+    columns from an even row and column, whose site (row parity dy, column
+    parity dx & 1 against the red site's ry, rx) picks the two interpolants
+    it computes; the matrix epilogue."""
+    h, w = x.shape
+    hp, wp = -(-h // 2) * 2, -(-w // 4) * 4
+    rows = [_reflect101(i, h) for i in range(-2, hp + 2)]
+    cols = [_reflect101(i, w) for i in range(-2, wp + 2)]
+    win = x[np.ix_(rows, cols)].astype(np.float32)
+    if norm is not None:
+        win = np.clip((win - np.float32(norm[0])) * np.float32(norm[1]), 0.0, 1.0)
+    out = np.zeros((3, hp, wp), np.float32)
+    e = 0.125
+    for dy in range(2):
+        for dx in range(4):
+
+            def sh(oy, ox):  # window value at (run row + dy + oy, run column + dx + ox)
+                return win[2 + dy + oy: 2 + dy + oy + hp: 2, 2 + dx + ox: 2 + dx + ox + wp: 4]
+
+            m = sh(0, 0)
+            h1 = sh(0, -1) + sh(0, 1)
+            v1 = sh(-1, 0) + sh(1, 0)
+            h2 = sh(0, -2) + sh(0, 2)
+            v2 = sh(-2, 0) + sh(2, 0)
+            dg = (sh(-1, -1) + sh(-1, 1)) + (sh(1, -1) + sh(1, 1))
+            r_row, r_col = dy == ry, (dx & 1) == rx
+            if r_row == r_col:  # R or B site: t_g and t_opp only
+                hv2 = h2 + v2
+                t_g = e * (4.0 * m + 2.0 * (h1 + v1) - hv2)
+                t_opp = e * (6.0 * m + 2.0 * dg - 1.5 * hv2)
+                rgb = (m, t_g, t_opp) if r_row else (t_opp, t_g, m)
+            else:  # G site: t_row and t_col only
+                t_row = e * (5.0 * m + 4.0 * h1 - dg - h2 + 0.5 * v2)
+                t_col = e * (5.0 * m + 4.0 * v1 - dg - v2 + 0.5 * h2)
+                rgb = (t_row, m, t_col) if r_row else (t_col, m, t_row)
+            if mat is not None:
+                r, g, b = (np.clip(q, 0.0, 1.0) for q in rgb)
+                mt = [float(v) for v in np.asarray(mat, np.float32).reshape(9)]
+                rgb = [np.maximum(mt[3 * c] * r + mt[3 * c + 1] * g + mt[3 * c + 2] * b, 0.0) for c in range(3)]
+            for c in range(3):
+                out[c, dy::2, dx::4] = rgb[c]
+    return out[:, :h, :w]
+
+
+@pytest.mark.parametrize("with_mat", [False, True], ids=["rgb", "mat"])
+@pytest.mark.parametrize("kind", ["u16-norm", "f32"])
+@pytest.mark.parametrize("pattern", list(tdm.PATTERNS))
+@pytest.mark.parametrize("hw", [(48, 150), (37, 67), (3, 5), (2, 2), (5, 4)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_kernel_site_rule_matches_plain(pattern, kind, with_mat, hw):
+    """The kernel's per-site arithmetic (compile-time Bayer sites, two
+    interpolants each, reflect101 staging with the normalize) equals the
+    plain version bit for bit on every pattern, on frames whose H and W are
+    not multiples of the 2 x 4 run, down to 2 x 2 (reflect more than once)."""
+    rng = np.random.default_rng(hw[0] * 1000 + hw[1])
+    if kind == "f32":
+        x, norm = rng.uniform(0.0, 1.0, hw).astype(np.float32), None
+    else:
+        x, norm = rng.integers(0, 14000, hw).astype(np.uint16), NORM
+    ry, rx = tdm.PATTERNS[pattern]
+    mat = MAT if with_mat else None
+    want = tdm.demosaic_plain(torch.from_numpy(x), ry, rx, mat, norm).numpy()
+    np.testing.assert_array_equal(_k1_emulate(x, ry, rx, mat, norm), want)
+
+
 def test_bad_pattern_raises():
     with pytest.raises(ValueError):
         tdm.demosaic_mhc(torch.zeros(8, 8), "RGBG")

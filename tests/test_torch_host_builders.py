@@ -86,7 +86,13 @@ def _jax_parts():
 
 
 def _assert_bundles_equal(tb, jb):
-    assert set(tb) == set(jb)
+    """The JAX bundle's keys and values, plus the host copy of ``m_in``
+    (``m_in_host``, read-only), equal to it and to the device copy."""
+    assert set(tb) == set(jb) | {"m_in_host"}
+    host = tb["m_in_host"]
+    assert isinstance(host, np.ndarray) and host.dtype == np.float32 and not host.flags.writeable
+    np.testing.assert_array_equal(host, np.asarray(jb["m_in"]))
+    np.testing.assert_array_equal(host, tb["m_in"].cpu().numpy())
     for k, v in jb.items():
         if isinstance(v, tuple):
             assert len(tb[k]) == len(v)

@@ -526,3 +526,108 @@ def test_burn_matrices_stay_on_the_device():
     for n in range(conv.MATRIX_CACHE_SIZE + 4):
         conv.box_downsample(torch.rand((1, 40 + n, 40)), 3)
     assert len(conv._device_matrices) <= conv.MATRIX_CACHE_SIZE
+
+
+@pytest.mark.parametrize(
+    "w,dtype,offsets,vec",
+    [(8208, torch.uint16, (0, 0), True), (8208, torch.float32, (0, 0), True), (8204, torch.uint16, (0, 0), False),
+     (8204, torch.float32, (0, 0), True), (8207, torch.uint16, (0, 0), False), (66, torch.float32, (0, 0), False),
+     (64, torch.uint16, (2, 0), False), (64, torch.uint16, (4, 0), False), (64, torch.float32, (4, 0), False),
+     (64, torch.float32, (8, 0), False), (64, torch.float32, (16, 0), True), (64, torch.uint16, (0, 8), False)],
+)
+def test_demosaic_path(w, dtype, offsets, vec):
+    """K1's 16-byte path takes W a multiple of 8 (uint16) or 4 (float32)
+    and a 16-byte aligned mosaic and output; every other shape goes to its
+    general path."""
+    from raw2film_tpu_torch.ops import demosaic
+
+    assert demosaic.vec_path(w, dtype, *(0x7F0000000000 + o for o in offsets)) is vec
+
+
+@pytest.mark.parametrize(
+    "w,offsets,vec",
+    [(2052, (0, 0), True), (1500, (0, 0), True), (2051, (0, 0), False), (30, (0, 0), False), (2052, (4, 0), False),
+     (2052, (8, 0), False), (2052, (0, 4), False), (2052, (16, 32), True)],
+)
+def test_upsample_rows_path(w, offsets, vec):
+    """K12's 16-byte path takes w a multiple of 4 and a 16-byte aligned
+    input and output (the 45 MP and 24 MP /4 levels: w = 2052, 1500)."""
+    assert pyramid.rows_vec_path(w, *(0x7F0000000000 + o for o in offsets)) is vec
+
+
+class _FakeLib:
+    """Stands in for the kernel library on the CPU: records each entry
+    point's arguments (read at the call, while they are alive) and returns
+    0, so a wrapper's launch can be inspected without a card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            seen = list(args)
+            if name == "r2f_demosaic" and args[10] is not None:
+                seen[10] = np.ctypeslib.as_array((ctypes.c_float * 9).from_address(args[10].value)).copy()
+            if name == "r2f_upsample_rows":
+                seen[6] = args[6]._obj
+            self.calls.append((name, seen))
+            return 0
+
+        return call
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The wrappers' kernel path on CPU tensors, into a _FakeLib; the launch
+    counts are a copy, restored afterwards."""
+    lib = _FakeLib()
+    monkeypatch.setattr(kb, "use_kernel", lambda t: True)
+    monkeypatch.setattr(kb, "require", lambda *a, **k: None)
+    monkeypatch.setattr(kb, "lib", lambda: lib)
+    monkeypatch.setattr(kb, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(kb, "launches", dict(kb.launches))
+    return lib
+
+
+@pytest.mark.parametrize(
+    "shape,f,oh,offset", [((3, 1368, 2052), 4, 5472, 0), ((3, 1000, 1500), 4, None, 0), ((2, 7, 30), 3, 20, 0),
+                          ((1, 9, 64), 8, 70, 0), ((3, 11, 32), 4, 41, 1), ((3, 11, 32), 4, 41, 2)],
+)
+def test_upsample_rows_launch(fake_launch, shape, f, oh, offset):
+    """K12's launch: the phase table of f by value (phases(f), the cached
+    table), the shape and crop, and the path of rows_vec_path."""
+    base = torch.zeros(int(np.prod(shape)) + offset)
+    img = base[offset:].view(shape)
+    out = pyramid.bilinear_upsample_rows(img, f, oh)
+    (name, args), = fake_launch.calls
+    assert name == "r2f_upsample_rows" and kb.launches["pyramid_up_rows"] == 1
+    c, h, w = shape
+    assert args[2:6] == [c, h, w, oh or h * f] and tuple(out.shape) == (c, oh or h * f, w)
+    assert args[6] is pyramid.phases(f) and args[6].f == f
+    assert args[7] == int(pyramid.rows_vec_path(w, img.data_ptr(), out.data_ptr())) == int(offset == 0 and w % 4 == 0)
+
+
+@pytest.mark.parametrize("norm", [None, (512.0, 1.0 / 15000.0)], ids=["no-norm", "norm"])
+@pytest.mark.parametrize(
+    "dtype,w,offset", [(torch.uint16, 8208, 0), (torch.uint16, 8207, 0), (torch.uint16, 64, 1), (torch.uint16, 64, 2),
+                       (torch.float32, 66, 0), (torch.float32, 64, 0), (torch.float32, 64, 1)],
+)
+def test_demosaic_launch(fake_launch, dtype, w, offset, norm):
+    """K1's launch: the Bayer phase, the normalize pair, the 9 matrix
+    values in float32 (or none) and the path of vec_path."""
+    from raw2film_tpu_torch.ops import demosaic
+
+    h = 6
+    base = torch.zeros(h * w + offset, dtype=dtype)
+    mosaic = base[offset:].view(h, w)
+    mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]])
+    out = demosaic.demosaic_exposure(mosaic, "GBRG", mat, norm)
+    demosaic.demosaic_mhc(mosaic, "BGGR", norm)
+    (n1, a1), (n2, a2) = fake_launch.calls
+    assert n1 == n2 == "r2f_demosaic" and kb.launches["demosaic"] == 2
+    assert a1[1] == int(dtype == torch.uint16) and a1[3:7] == [h, w, 1, 0] and a2[5:7] == [1, 1]
+    assert a1[7:10] == ([1, 512.0, np.float32(1.0 / 15000.0)] if norm else [0, 0.0, 1.0])
+    np.testing.assert_array_equal(a1[10], mat.astype(np.float32).ravel())
+    assert a2[10] is None
+    vec = demosaic.vec_path(w, dtype, mosaic.data_ptr(), out.data_ptr())
+    assert a1[11] == int(vec) and vec == (offset == 0 and w % (8 if dtype == torch.uint16 else 4) == 0)

@@ -131,6 +131,32 @@ def test_unported_branches_raise(name, monkeypatch):
     assert worst <= 1
 
 
+def test_fused_path_folds_the_host_m_in(monkeypatch):
+    """The fused path folds the camera matrix and gain into the bundle's
+    host copy of m_in (m_in_host, equal to the device copy), so it reads
+    nothing back from the device: with the device m_in poisoned (NaN) it
+    renders the same codes, and K1 gets the fold of the host copy, equal
+    bit for bit to the fold of the device copy."""
+    from raw2film_tpu_torch import load_film_bundle
+    from raw2film_tpu_torch.ops import demosaic as tdm
+    from raw2film_tpu_torch.pipeline.render import fold_input_matrix
+
+    bundle, cfg = load_film_bundle(h=32, w=48, device="cpu", halation=False, grain=2, sharpness=True)
+    np.testing.assert_array_equal(bundle["m_in_host"], bundle["m_in"].numpy())
+    mats = []
+    orig = tdm.demosaic_exposure
+    monkeypatch.setattr(tdm, "demosaic_exposure", lambda x, p, mat, norm=None: mats.append(mat) or orig(x, p, mat, norm))
+    codes = _codes(32, 48, seed=9)
+    want = render_chain_from_mosaic(codes, REC709_TO_XYZ, bundle, cfg, 5, exposure_gain=1.3, norm=NORM, device="cpu")
+    poisoned = dict(bundle, m_in=torch.full((3, 3), float("nan")))
+    got = render_chain_from_mosaic(codes, REC709_TO_XYZ, poisoned, cfg, 5, exposure_gain=1.3, norm=NORM, device="cpu")
+    assert torch.equal(got, want)
+    folded = fold_input_matrix(bundle["m_in"], REC709_TO_XYZ, 1.3)
+    assert len(mats) == 2 and np.isfinite(folded).all()
+    for mat in mats:
+        np.testing.assert_array_equal(mat, folded)
+
+
 def test_chroma_nr_is_refused():
     """The mosaic path refuses chroma NR, as the JAX one does; the staged
     render_chain runs it (ops/chroma_nr.py), within 1 code of JAX."""
