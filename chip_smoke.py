@@ -20,7 +20,11 @@
    levels, K14 at the 45 MP and 24 MP frames; K1 on both its paths at 45 MP
    and at phase (f)'s shapes, K12 on both at the 45 MP and 24 MP /4
    levels, each path named, both paths timed in turns (their device time
-   is read from the profiled render below);
+   is read from the profiled render below); K7 and K8 on each of their paths
+   (white noise, 3 and 5 taps compiled in, the general path; 16-byte and
+   value-by-value stores; K8 on an unaligned view), each timed at the 45 MP
+   frame (3 taps) and the half-size frame (1 tap) beside its bound, and
+   built with no stack frame and no spills (``nvcc -Xptxas -v``);
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -46,7 +50,7 @@
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
    the halation-on render's device time by kernel (a failure if a render
    copies anything from the host to the device, or more than
-   D2H_PER_RENDER from the device to the host), and prints one JSON line
+   D2H_PER_RENDER = 0 from the device to the host), and prints one JSON line
    of per-kernel results;
 8. prints {"ok": true, "device": {...}} as its last line.
 
@@ -148,10 +152,10 @@ def counts(**nonzero) -> dict:
 LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1,
                      halation=1, print_encode=1)
 LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
-# Device-to-host copies in one profiled 45 MP render: K3's wrapper reads the
-# film parameters back once (the input matrix is folded from the bundle's
-# host copy).
-D2H_PER_RENDER = 1
+# Device-to-host copies in one profiled 45 MP render: none. The input matrix
+# is folded from the bundle's host copy (m_in_host) and K3 takes the film
+# parameters from theirs (pvec_host).
+D2H_PER_RENDER = 0
 # Processor.process() of the DNG: (overrides of the benchmark settings,
 # launches per render, output shape). Every phase blurs the burn's small map
 # on K4 once.
@@ -589,35 +593,104 @@ def check_conv1d(device, full_hw, cfg) -> tuple[dict, dict]:
     return out["conv_w"], out["conv_h"]
 
 
+# a correlation sigma for each K7 / K8 path (ops/grain.py::grain_path):
+# white noise, 3 and 5 taps compiled in, the general path (13 taps)
+PATH_SIGMAS = {1: 0.2, 3: 0.547, 5: 0.8, 13: 2.3}
+
+
+def grain_path_name(n: int, w: int, *ptrs) -> str:
+    path = grain_ops.grain_path(n)
+    if path == "general":
+        return f"general, {n} taps"
+    return f"{path}, {n} taps, {'16-byte' if grain_ops.vec_path(w, *ptrs) else 'scalar'}"
+
+
+def grain_frames(cfg, full_hw) -> dict:
+    """The frames K7 and K8 are timed at: the 45 MP frame with its 3 taps and
+    the half-size frame (the CLI default) with its 1 tap."""
+    frames = {}
+    for hw, scale in ((full_hw, cfg.scale), ((full_hw[0] // 2, full_hw[1] // 2), cfg.scale / 2)):
+        sigma = grain_ops.correlation_sigma_px(scale, cfg.grain_size_mm, cfg.grain_sigma)
+        frames[f"{hw[0]}x{hw[1]}"] = (hw, sigma, len(grain_ops.grain_corr_taps(sigma)))
+    if [n for _, _, n in frames.values()] != [3, 1]:
+        raise AssertionError(f"K7/K8 frames: want 3 and 1 taps, got {frames}")
+    return frames
+
+
 def check_grain_field(device, full_hw, cfg) -> dict:
-    """K7, colour and black-and-white, at ragged shapes with 1 to 13 taps and
-    at 45 MP with its 3 taps; the colour field at 45 MP is reported."""
-    sigma = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
+    """K7, colour and black-and-white, on every path at ragged shapes (W a
+    multiple of 4 or not), then at the 45 MP frame (3 taps) and the
+    half-size frame (1 tap), each timed beside its bound (``by_frame``); the
+    45 MP colour field is the one in the main keys."""
     seed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
-    result = None
+    frames = grain_frames(cfg, full_hw)
+    small = [((70, 96), 1), ((45, 71), 1), ((45, 71), 3), ((70, 132), 3), ((37, 53), 5), ((64, 260), 5),
+             ((37, 53), 13), ((70, 96), 13)]
     for bw in (True, False):
-        for hw, sg in (((70, 96), 0.1), ((45, 71), sigma), ((37, 53), 2.3), (full_hw, sigma)):
-            args = (seed, hw, sg)
+        for hw, n in small:
+            args = (seed, hw, PATH_SIGMAS[n])
             err = max_err(grain_ops.grain_field(*args, bw=bw, device=device),
                           plain(grain_ops.grain_field, *args, bw=bw, device=device))
+            expect("grain_field", err, TOL["grain_field"], f"bw={bw} {hw} ({grain_path_name(n, hw[1], 0)})")
+    by_frame = {}
+    for name, (hw, sigma, n) in frames.items():
+        for bw in (True, False):
+            args = (seed, hw, sigma)
+            got = grain_ops.grain_field(*args, bw=bw, device=device)
+            ref = plain(grain_ops.grain_field, *args, bw=bw, device=device)
+            err = max_err(got, ref)
             expect("grain_field", err, TOL["grain_field"],
-                   f"bw={bw} {len(grain_ops.grain_corr_taps(sg))} taps {hw}")
-        if not bw:
-            n = len(grain_ops.grain_corr_taps(sigma))
-            numel = 3 * full_hw[0] * full_hw[1]
-            result = {
-                "max_abs_err": err,
-                "ms": med(lambda: grain_ops.grain_field(seed, full_hw, sigma, device=device), 20),
-                "plain_ms": med(lambda: plain(grain_ops.grain_field, seed, full_hw, sigma, device=device), 3),
-                # written once; per output the two correlation passes
-                **bound(numel * 4, numel * 4 * n),
-                "library_ms": None,
-            }
-    return result
+                   f"bw={bw} {hw} ({grain_path_name(n, hw[1], got.data_ptr())}; bit-equal: {torch.equal(got, ref)})")
+            del got, ref
+        numel = 3 * hw[0] * hw[1]
+        launch = lambda: grain_ops.grain_field(seed, hw, sigma, device=device)  # noqa: E731
+        by_frame[name] = {
+            "taps": n, "max_abs_err": err, "ms": med(launch, 20),
+            "plain_ms": med(lambda: plain(grain_ops.grain_field, seed, hw, sigma, device=device), 3),
+            # written once; per output the two correlation passes
+            **bound(numel * 4, numel * 4 * n),
+        }
+        print(f"  grain_field {name} ({n} taps): {by_frame[name]!r}")
+    main = by_frame[next(iter(frames))]
+    return {**{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+            "by_frame": by_frame}
+
+
+def grain_registers() -> dict:
+    """Registers, stack frame and spills of K7's and K8's kernels from the
+    build's ``nvcc -Xptxas -v`` report (empty when this process did not
+    build the library); fails if one has a stack frame or spills."""
+    import re
+
+    found, name = {}, None
+    for line in kb.build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(grain_(?:white|taps|general)_kernel(?:I\w+?EE)?)", line)
+        if m:
+            name = m.group(1)
+            found[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[name]["registers"] = int(m.group(1))
+            name = None
+    for k, v in found.items():
+        print(f"  K7/K8 kernel {k}: {v}")
+        if v.get("stack", 1) or v.get("spill_stores", 1) or v.get("spill_loads", 1):
+            raise AssertionError(f"{k}: a stack frame or spills: {v}")
+    if not found:
+        print("  K7/K8 kernels: no ptxas report (the library was not built by this process)")
+    return found
 
 
 def check_print_encode(device, full_hw, bundle, cfg) -> dict:
-    pvec = pe.pack_print_vec(bundle)
+    pvec = bundle["pvec_host"]  # the host copy the render hands K3
+    if not np.array_equal(pvec, pe.pack_print_vec(bundle).cpu().numpy()):
+        raise AssertionError("print_encode: the bundle's pvec_host differs from its packed device entries")
     g = torch.Generator(device=device).manual_seed(5)
     d = torch.rand((3, 37, 300), generator=g, device=device) * 3.5
     dodd = torch.rand((3, 37, 301), generator=g, device=device) * 3.5
@@ -918,36 +991,50 @@ def check_upsample(device, full_hw) -> dict:
 
 
 def check_grain_apply(device, full_hw, cfg) -> tuple[dict, dict]:
-    """Small ragged frames with 3 and 13 taps, the half-size frame with its
-    white-noise grain (phases c and d), then the 45 MP frame with its 3 taps."""
+    """K8 on every path at small ragged shapes (W a multiple of 4 or not, an
+    unaligned view), K9 with 3 and 13 taps; both at the half-size frame with
+    its white-noise grain (phases c and d) and at the 45 MP frame with its
+    3 taps. K8 is timed at both frames beside its bound (``by_frame``), K9
+    at 45 MP; the 45 MP times are in the main keys."""
     prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=device)
     seed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
     g = torch.Generator(device=device).manual_seed(11)
-    sigma = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
-    half_sigma = grain_ops.correlation_sigma_px(cfg.scale / 2, cfg.grain_size_mm, cfg.grain_sigma)
-    n = len(grain_ops.grain_corr_taps(sigma))
+    frames = grain_frames(cfg, full_hw)
+    full = next(iter(frames))
     out = {}
     for bw, name in ((False, "grain_apply"), (True, "grain_apply_bw")):
-        for shape, sg in (((3, 45, 71), sigma), ((3, 45, 71), 2.3), ((3, full_hw[0] // 2, full_hw[1] // 2), half_sigma)):
+        small = ([((3, 45, 71), 3), ((3, 45, 71), 13)] if bw else
+                 [((3, 45, 71), 1), ((3, 45, 72), 1), ((3, 45, 71), 3), ((3, 45, 72), 3), ((3, 37, 53), 5),
+                  ((3, 64, 260), 5), ((3, 45, 71), 13), ((3, 70, 132), 13)])
+        for shape, n in small:
             d = torch.rand(shape, generator=g, device=device) * 3.0
-            args = (d, seed, sg, prm, bw)
-            expect(name, max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args)),
-                   TOL[name], f"{len(grain_ops.grain_corr_taps(sg))} taps {shape}")
-        d = torch.rand((3, *full_hw), generator=g, device=device) * 3.0
-        args = (d, seed, sigma, prm, bw)
-        err = max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args))
-        expect(name, err, TOL[name], f"{n} taps 3x{full_hw[0]}x{full_hw[1]}")
-        fields = 1 if bw else 3
-        out[name] = {
-            "max_abs_err": err,
-            "ms": med(lambda: grain_ops.grain_apply(*args), 20),
-            "plain_ms": med(lambda: plain(grain_ops.grain_apply, *args), 3),
-            # density in and out; per field value the two correlation
-            # passes, per density the amplitude (about 12 FLOPs) and the add
-            **bound(d.numel() * 8, d.numel() // 3 * fields * 4 * n + d.numel() * 14),
-            "library_ms": None,
-        }
-        del d, args
+            for x in ([d] if bw else [d, unaligned(d)]):
+                args = (x, seed, PATH_SIGMAS[n], prm, bw)
+                what = f"{shape}, {n} taps" if bw else f"{shape} ({grain_path_name(n, shape[2], x.data_ptr())})"
+                expect(name, max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args)), TOL[name], what)
+        by_frame = {}
+        for fname, (hw, sigma, n) in reversed(frames.items()):
+            d = torch.rand((3, *hw), generator=g, device=device) * 3.0
+            args = (d, seed, sigma, prm, bw)
+            err = max_err(grain_ops.grain_apply(*args), plain(grain_ops.grain_apply, *args))
+            path = f", {n} taps" if bw else f" ({grain_path_name(n, hw[1], d.data_ptr())})"
+            expect(name, err, TOL[name], f"3x{hw[0]}x{hw[1]}{path}")
+            if bw and fname != full:
+                continue
+            fields = 1 if bw else 3
+            by_frame[fname] = {
+                "taps": n, "max_abs_err": err,
+                "ms": med(lambda: grain_ops.grain_apply(*args), 20),
+                "plain_ms": med(lambda: plain(grain_ops.grain_apply, *args), 3),
+                # density in and out; per field value the two correlation
+                # passes, per density the amplitude (about 12 FLOPs) and the add
+                **bound(d.numel() * 8, d.numel() // 3 * fields * 4 * n + d.numel() * 14),
+            }
+            print(f"  {name} {fname} ({n} taps): {by_frame[fname]!r}")
+            del d, args
+        main = by_frame[full]
+        out[name] = {**{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+                     "library_ms": None, **({} if bw else {"by_frame": by_frame})}
     return out["grain_apply"], out["grain_apply_bw"]
 
 
@@ -1286,6 +1373,7 @@ def main() -> int:
     for line in kb.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    grain_registers()
 
     params = dict(h=H, w=W, device=device, grain=2, sharpness=True, highlight_burn=0.3)
     bundle, cfg = load_film_bundle(halation=True, **params)

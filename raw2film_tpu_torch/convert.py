@@ -15,13 +15,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from raw2film_tpu_torch.pipeline.render import RenderConfig, host_m_in
+from raw2film_tpu_torch.ops.print_encode import PVEC_KEYS
+from raw2film_tpu_torch.pipeline.render import RenderConfig, host_m_in, host_print_vec
 
 
 def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
     """JAX bundle dict -> dict of float32 tensors on ``device``; tuple
     leaves (the H&D curves) stay tuples. Like ``make_film_bundle``'s, a
-    bundle with ``m_in`` also holds ``m_in_host``, its copy on the host."""
+    bundle with ``m_in`` also holds ``m_in_host``, its copy on the host, and
+    one with the print parameters ``pvec_host``, their packed host copy."""
 
     def leaf(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
@@ -32,6 +34,8 @@ def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
     }
     if "m_in" in jax_bundle:
         out["m_in_host"] = host_m_in(np.asarray(jax_bundle["m_in"]))
+    if all(k in jax_bundle for k in PVEC_KEYS):
+        out["pvec_host"] = host_print_vec(jax_bundle)
     return out
 
 

@@ -9,8 +9,8 @@
 // Built without --use_fast_math: exp2f/log2f are the accurate library forms
 // (2 and 1 ulp), each a 15-28 instruction polynomial. The print tail (K3)
 // and K14's development take their exp2/log2 from the SFU instead
-// (lg2_sfu, ex2_sfu); expe, used by the grain amplitude, stays on the
-// library form.
+// (lg2_sfu, ex2_sfu), as do the grain amplitudes of K2, K7 and K8; expe,
+// used by K9's amplitude, stays on the library form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -103,21 +103,26 @@ __device__ __forceinline__ float encode(float x, int gamma) {
 
 // PCG-3D (Jarzynski & Olano) in native uint32 arithmetic, wrapping mod 2^32:
 // raw2film_tpu/ops/pallas_grain.py::_pcg3d.
-__device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
-                                      uint32_t& a, uint32_t& b) {
-  uint32_t v0 = x * 1664525u + 1013904223u;
-  uint32_t v1 = y * 1664525u + 1013904223u;
-  uint32_t v2 = z * 1664525u + 1013904223u;
-  v0 += v1 * v2;
-  v1 += v2 * v0;
-  v2 += v0 * v1;
+__device__ __forceinline__ uint32_t lcg(uint32_t v) { return v * 1664525u + 1013904223u; }
+
+// PCG-3D's two words from its three coordinates' LCG steps X, Y, Z and the
+// product yz = Y * Z, which a run along a row computes once.
+__device__ __forceinline__ void pcg3d_row(uint32_t X, uint32_t Y, uint32_t Z, uint32_t yz,
+                                          uint32_t& a, uint32_t& b) {
+  uint32_t v0 = X + yz;
+  uint32_t v1 = Y + Z * v0;
+  uint32_t v2 = Z + v0 * v1;
   v0 ^= v0 >> 16;
   v1 ^= v1 >> 16;
   v2 ^= v2 >> 16;
-  v0 += v1 * v2;
-  v1 += v2 * v0;
-  a = v0;
-  b = v1;  // the third word is unused by the grain normals
+  a = v0 + v1 * v2;
+  b = v1 + v2 * a;  // the third word is unused by the grain normals
+}
+
+__device__ __forceinline__ void pcg3d(uint32_t x, uint32_t y, uint32_t z,
+                                      uint32_t& a, uint32_t& b) {
+  const uint32_t Y = lcg(y), Z = lcg(z);
+  pcg3d_row(lcg(x), Y, Z, Y * Z, a, b);
 }
 
 // Channel salt of the hash's z coordinate: ch * 0x9E3779B9 + seed.
@@ -125,9 +130,16 @@ __device__ __forceinline__ uint32_t grain_z(int ch, uint32_t seed) {
   return static_cast<uint32_t>(ch) * 0x9E3779B9u + seed;
 }
 
+// S - 32, S = popc(a) + popc(b) in 0..64, exactly and without a quarter-rate
+// I2F: 2^23 + S as a float holds S in its low mantissa bits, and
+// (2^23 + S) - (2^23 + 32) is exact.
+__device__ __forceinline__ float grain_centred(uint32_t a, uint32_t b) {
+  return __int_as_float(0x4B000000 | (__popc(a) + __popc(b))) - 8388640.0f;
+}
+
 // Binomial(64, 1/2) normal from the two hash words: (S - 32) / 4.
 __device__ __forceinline__ float grain_normal(uint32_t a, uint32_t b) {
-  return (static_cast<float>(__popc(a) + __popc(b)) - 32.0f) * 0.25f;
+  return grain_centred(a, b) * 0.25f;
 }
 
 // One float from device to shared memory without a register on the way;

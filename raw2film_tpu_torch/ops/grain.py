@@ -15,7 +15,10 @@ for grain modes other than 1 and 2. :func:`grain_apply` is K8 (colour grain,
 ``grain_apply_pallas``) and, with ``bw=True``, K9 (one field shared by the
 channels and the channel-mean amplitude, ``grain_apply_bw_pallas``). On a
 CUDA device they launch ``csrc/grain.cu``, on the CPU they run
-:func:`grain_field_hash` and :func:`grain_apply_plain`.
+:func:`grain_field_hash` and :func:`grain_apply_plain`. K7 and K8 take one
+of three kernels by the tap count (:func:`grain_path`: white noise, a
+count compiled in, or the general one) and, on the first two, 16-byte loads
+and stores where :func:`vec_path` allows.
 
 The grain seed is an explicit uint32 integer; a JAX ``noise_key`` maps to
 ``seed = key[0] ^ key[1]``.
@@ -41,6 +44,9 @@ from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 MAX_TAPS = 31  # the kernels' limit on correlation taps (csrc/grain.cuh)
+# Tap counts K7 and K8 have a kernel for, with the count compiled in
+# (csrc/grain.cu, "COMPILED_TAPS"); 1 tap is white noise.
+COMPILED_TAPS = (3, 5)
 THIRD = float(np.float32(1.0 / 3.0))
 
 
@@ -174,6 +180,21 @@ def grain_amplitude(d: torch.Tensor, prm: torch.Tensor) -> torch.Tensor:
     return prm[0] * grain_shape(d, prm)
 
 
+def grain_path(n: int) -> str:
+    """The K7 / K8 kernel for n correlation taps, as ``csrc/grain.cu``
+    chooses it: "white" (1 tap, elementwise), "taps" (a count in
+    COMPILED_TAPS: register runs), else "general"."""
+    if n == 1:
+        return "white"
+    return "taps" if n in COMPILED_TAPS else "general"
+
+
+def vec_path(w: int, *ptrs) -> bool:
+    """Whether K7 / K8 take their 16-byte loads and stores: W a multiple of
+    4 and every buffer 16-byte aligned (the general path ignores it)."""
+    return w % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
 # ------------------------------------------------------------ K8, K9
 
 
@@ -210,9 +231,10 @@ def grain_apply(d: torch.Tensor, seed: tuple[int, int], sigma_px: float, prm: to
     s, row_off = seed2(*seed)
     out = torch.empty_like(d)
     ctaps = (ctypes.c_float * len(taps))(*taps)
+    vec = not bw and vec_path(w, d.data_ptr(), out.data_ptr())
     err = kb.lib().r2f_grain_apply(
         d.data_ptr(), out.data_ptr(), c, h, w, int(bw), s, row_off, prm.data_ptr(),
-        ctypes.cast(ctaps, ctypes.c_void_p), len(taps), kb.stream_ptr(d),
+        ctypes.cast(ctaps, ctypes.c_void_p), len(taps), int(vec), kb.stream_ptr(d),
     )
     kb.check(err, "r2f_grain_apply")
     kb.launches["grain_apply_bw" if bw else "grain_apply"] += 1
@@ -242,7 +264,7 @@ def grain_field(seed: tuple[int, int], hw: tuple[int, int], sigma_px: float, bw:
         ctaps = (ctypes.c_float * len(taps))(*taps)
         err = kb.lib().r2f_grain_field(
             field.data_ptr(), c, h, w, s, row_off, ctypes.cast(ctaps, ctypes.c_void_p),
-            len(taps), kb.stream_ptr(field),
+            len(taps), int(vec_path(w, field.data_ptr())), kb.stream_ptr(field),
         )
         kb.check(err, "r2f_grain_field")
         kb.launches["grain_field"] += 1

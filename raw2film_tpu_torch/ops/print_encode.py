@@ -22,12 +22,16 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import fastmath as fm
 
 PVEC_LEN = 61
+# The bundle entries the vector is packed from (pack_print_vec).
+PVEC_KEYS = ("a", "log_e0", "prt_curve", "d_offset", "v", "shadow_comp", "shadow_ref", "vd_offset",
+             "to_display", "white_gain", "sat", "highlight_burn")
 # Transfer-function codes of csrc/common.cuh (enum Gamma).
 GAMMA_CODES = {
     "Linear": 0, "sRGB": 1, "Display P3": 1, "Rec709": 2,
@@ -106,14 +110,16 @@ def vector_path(w: int, *ptrs) -> bool:
 
 
 def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=None):
-    """K3 wrapper. d (3, H, W) float32; pvec float32[61] (passed to the
-    kernel by value); burn = (small (hs, ws), rowmat (H, hs), colmat
-    (ws, W)) or None."""
+    """K3 wrapper. d (3, H, W) float32; pvec float32[61], a host array (the
+    bundle's ``pvec_host``) or a tensor, passed to the kernel by value;
+    burn = (small (hs, ws), rowmat (H, hs), colmat (ws, W)) or None."""
     if gamma not in GAMMA_CODES:
         raise ValueError(f"unknown gamma_func {gamma!r}")
     if mode not in MODES:
         raise ValueError(f"unknown print mode {mode!r}")
     if not kb.use_kernel(d):
+        if not isinstance(pvec, torch.Tensor):
+            pvec = torch.as_tensor(np.array(pvec, np.float32), device=d.device)
         return print_encode_plain(d, pvec, mode, shadow, sat_neutral, gamma, quantize, burn)
     if d.dim() != 3 or d.shape[0] != 3:
         raise ValueError(f"density: want (3, H, W), got {tuple(d.shape)}")
@@ -121,8 +127,11 @@ def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=
     kb.require(d, "density", torch.float32)
     if tuple(pvec.shape) != (PVEC_LEN,):
         raise ValueError(f"pvec: shape {tuple(pvec.shape)}, want ({PVEC_LEN},)")
-    # by value: this copy waits for the work queued before it (the density)
-    pv = (ctypes.c_float * PVEC_LEN)(*pvec.detach().to("cpu", torch.float32).tolist())
+    # by value: a host array is read as it is; a device tensor's copy to the
+    # host waits for the work queued before it (the density)
+    if isinstance(pvec, torch.Tensor):
+        pvec = pvec.detach().to("cpu", torch.float32).numpy()
+    pv = (ctypes.c_float * PVEC_LEN)(*np.asarray(pvec, np.float32).tolist())
     hs = ws = 0
     ptrs = (None, None, None)
     if burn is not None:

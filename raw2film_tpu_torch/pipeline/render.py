@@ -91,14 +91,22 @@ def make_film_bundle(
 ) -> dict:
     """Pack the calibrated chain (film/chain.py parameter records) into a
     dict of float32 tensors with the JAX bundle's keys and shapes, plus
-    ``m_in_host`` (:func:`host_m_in`)."""
+    ``m_in_host`` (:func:`host_m_in`) and ``pvec_host``
+    (:func:`host_print_vec`)."""
 
     def dev(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
+    print_parts = {
+        "a": prt_p.a, "log_e0": prt_p.log_e0, "prt_curve": prt_p.curve, "d_offset": prt_p.d_offset,
+        "v": prt_p.v, "shadow_comp": prt_p.shadow_comp, "shadow_ref": prt_p.shadow_ref,
+        "vd_offset": prt_p.vd_offset, "to_display": out_p.to_display, "white_gain": out_p.white_gain,
+        "sat": sat, "highlight_burn": highlight_burn,
+    }
     return {
         "m_in": dev(neg_p.m_in),
         "m_in_host": host_m_in(neg_p.m_in),
+        "pvec_host": host_print_vec(print_parts),
         "flare": dev(neg_p.flare),
         "neg_curve": tuple(dev(c) for c in neg_p.curve),
         "mask": dev(neg_p.mask),
@@ -131,6 +139,21 @@ def host_m_in(m_in) -> np.ndarray:
     host = np.array(m_in, np.float32)
     host.setflags(write=False)
     return host
+
+
+def host_print_vec(parts: dict) -> np.ndarray:
+    """The bundle's ``pvec_host``: a read-only float32 numpy copy of K3's 61
+    film parameters (``ops/print_encode.py::pack_print_vec``), packed from
+    the host arrays the bundle's entries are made from. The render hands it
+    to K3, so it reads no parameters back from the device."""
+    host = {
+        k: tuple(np.array(c, np.float32) for c in parts[k]) if isinstance(parts[k], tuple)
+        else np.array(parts[k], np.float32)
+        for k in pe.PVEC_KEYS
+    }
+    vec = pe.pack_print_vec(host).numpy().copy()
+    vec.setflags(write=False)
+    return vec
 
 
 def bundle_to(bundle: dict, device) -> dict:
@@ -319,7 +342,7 @@ def render_chain(
         if burn_args is None:
             d = burn_ops.burn(d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale)
     return pe.print_encode(
-        d.contiguous(), pe.pack_print_vec(bundle), cfg.print_mode, cfg.shadow_comp,
+        d.contiguous(), bundle["pvec_host"], cfg.print_mode, cfg.shadow_comp,
         cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize, burn=burn_args,
     )
 

@@ -11,9 +11,12 @@ power limit, then one JSON line:
   its /4 small blur (3 x 1368 x 2052, ranks of 15 and 27 taps); K3 with and
   without the burn; K14 (4 ranks x 27 taps, the development); K10 at f = 4;
   K12 (the /4 level back to 5472 rows); K1 (the 45 MP uint16 mosaic with the
-  normalize and a matrix); each held to its plain version first, then timed
-  (CUDA events, median of 20 calls) and profiled (device time per launch,
-  host-to-device and device-to-host copies);
+  normalize and a matrix); K8 and K7 at the 45 MP frame (3 grain taps) and
+  the half-size frame (2736 x 4104, 1 tap), and K9 at 45 MP; each held to
+  its plain version first, then timed (CUDA events, median of 20 calls) and
+  profiled (device time per launch, host-to-device and device-to-host
+  copies); K2's, K7's, K8's and K9's outputs also by a digest of their
+  bytes, so that two checkouts show whether they are bit-equal;
 - K4 on the preview's MTF stack (3 x 540 x 360) and its grouped F.conv2d,
   in turns (one call per event pair);
 - the 45 MP render with halation on and off: held to the plain versions
@@ -29,6 +32,7 @@ Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -132,27 +136,32 @@ def main() -> int:
     bundle_off, cfg_off = load_film_bundle(halation=False, **params)
     g = torch.Generator(device=dev).manual_seed(4)
 
-    def kernel(name, fn, tol, kname):
+    def kernel(name, fn, tol, kname, digest=False):
         with kb.plain_reference():
             ref = fn()
-        err = float((fn().double() - ref.double()).abs().max())
+        got = fn()
+        err = float((got.double() - ref.double()).abs().max())
         if not err <= tol:
             raise AssertionError(f"{name}: error {err} above {tol}")
         del ref
         out[name] = {"max_abs_err": err, "ms": statistics.median(cuda_ms(fn, 20)), **profiled(fn, 5, kname)}
+        if digest:
+            out[name]["digest"] = hashlib.sha256(got.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+        del got
         print(name, out[name], flush=True)
 
     u3, v3 = mtf_ops.mtf_taps(cfg.mtf_key, cfg.scale)
     gtaps = grain_ops.grain_corr_taps(grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma))
     grain = ((0xDEADBEEF, 5), torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=dev), gtaps)
     d = torch.rand((3, H, W), generator=g, device=dev) * 3.0
-    kernel("k2_mtf_grain", lambda: sep_rank.fused_sep_rank(d, u3, v3, grain), 1e-5, "sep_rank_kernel")
+    kernel("k2_mtf_grain", lambda: sep_rank.fused_sep_rank(d, u3, v3, grain), 1e-5, "sep_rank_kernel", True)
     _, _, by_factor = hal_ops._full_res_ranks(cfg.scale / 4.0 * cfg.halation_size)
     su, sv = hal_ops.pyramid_taps(4, by_factor[4])
     sm = torch.rand((3, H // 4, W // 4), generator=g, device=dev)
     kernel("k2_small_blur", lambda: sep_rank.fused_sep_rank(sm, su, sv), 1e-5, "sep_rank_kernel")
     burn = burn_ops.burn_smallmap(d, bundle["d_ref_green"], cfg.burn_scale)
-    args = (d, pe.pack_print_vec(bundle), cfg.print_mode, cfg.shadow_comp, cfg.sat_neutral, cfg.gamma_func, True)
+    pvec = bundle["pvec_host"] if "pvec_host" in bundle else pe.pack_print_vec(bundle)  # as the render passes it
+    args = (d, pvec, cfg.print_mode, cfg.shadow_comp, cfg.sat_neutral, cfg.gamma_func, True)
     kernel("k3_burn", lambda: pe.print_encode(*args, burn), 1.0, "print_encode_kernel")
     kernel("k3_no_burn", lambda: pe.print_encode(*args), 1.0, "print_encode_kernel")
     us, vs, _ = hal_ops._full_res_ranks(cfg.scale / 4.0 * cfg.halation_size)
@@ -166,6 +175,19 @@ def main() -> int:
     mat = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]], np.float32)
     kernel("k1", lambda: dm.demosaic_exposure(codes, "RGGB", mat, NORM), 2e-6, "demosaic_kernel")
     del codes
+
+    gg = torch.Generator(device=dev).manual_seed(21)
+    prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=dev)
+    gseed = (0xDEADBEEF, (-7) & 0xFFFFFFFF)
+    for frame, hw, scale in (("45mp", (H, W), cfg.scale), ("half", (H // 2, W // 2), cfg.scale / 2)):
+        sigma = grain_ops.correlation_sigma_px(scale, cfg.grain_size_mm, cfg.grain_sigma)
+        gd = torch.rand((3, *hw), generator=gg, device=dev) * 3.0
+        kernel(f"k8_{frame}", lambda: grain_ops.grain_apply(gd, gseed, sigma, prm), 1e-5, "grain_", True)
+        kernel(f"k7_{frame}", lambda: grain_ops.grain_field(gseed, hw, sigma, device=dev), 1e-5, "grain_", True)
+        out[f"k8_{frame}"]["taps"] = out[f"k7_{frame}"]["taps"] = len(grain_ops.grain_corr_taps(sigma))
+        if frame == "45mp":
+            kernel("k9", lambda: grain_ops.grain_apply(gd, gseed, sigma, prm, True), 1e-5, "grain_apply_bw", True)
+        del gd
 
     _, cfg15 = load_film_bundle(h=540, w=360, device=dev, grain=2, sharpness=True)
     p3, q3 = mtf_ops.mtf_taps(cfg15.mtf_key, cfg15.scale)

@@ -8,8 +8,8 @@ For every kernel whose mangled name holds one of the given substrings
 instruction count and opcode counts, then each loop of at least 48
 instructions (a backward branch and its target): its address range, its
 length and its counts of FFMA, shared loads (LDS), constant loads (LDC,
-ULDC), global loads (LDG), SFU operations (MUFU) and barriers, with the
-FFMA share. Needs the CUDA toolkit's ``cuobjdump``; the card is not used.
+ULDC), global loads (LDG), SFU operations (MUFU), population counts (POPC),
+integer-to-float conversions (I2F) and barriers, with the FFMA share. Needs the CUDA toolkit's ``cuobjdump``; the card is not used.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from raw2film_tpu_torch.kernels import build as kb  # noqa: E402
 
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
-SHOWN = ("FFMA", "LDS", "LDC", "ULDC", "LDG", "MUFU", "BAR")
+SHOWN = ("FFMA", "LDS", "LDC", "ULDC", "LDG", "MUFU", "POPC", "I2F", "BAR")
 
 
 def main() -> int:

@@ -456,3 +456,42 @@ def test_grain_field_kernel(cuda, bw):
         ref = grain_ops.grain_field(*args, bw=bw, device=cuda)
     assert tuple(got.shape) == (3, 70, 130)
     assert (got - ref).abs().max().item() <= 1e-5
+
+
+# a correlation sigma for each K7 / K8 path: white noise, the compiled 3 and
+# 5 taps, the general path (13 taps)
+_GRAIN_SIGMA = {1: 0.2, 3: 0.547, 5: 0.8, 13: 2.3}
+
+
+@pytest.mark.parametrize(
+    "shape,offset",
+    [((3, 70, 130), 0), ((3, 70, 132), 0), ((3, 70, 132), 1), ((3, 5, 7), 0), ((3, 129, 260), 0), ((3, 65, 257), 0)],
+    ids=["ragged-scalar", "ragged-vec", "unaligned", "tiny", "two-tiles-vec", "two-tiles-scalar"],
+)
+@pytest.mark.parametrize("n", [1, 3, 5, 13])
+def test_grain_apply_paths(cuda, n, shape, offset):
+    """K8 on every path (grain_path) and on both its 16-byte and its
+    value-by-value stores, at ragged and unaligned shapes, within 1e-5."""
+    sigma = _GRAIN_SIGMA[n]
+    assert len(grain_ops.grain_corr_taps(sigma)) == n
+    base = torch.rand(int(np.prod(shape)) + offset, generator=torch.Generator(device=cuda).manual_seed(n),
+                      device=cuda) * 3.0
+    d = base[offset:].view(shape)
+    prm = torch.tensor([0.02, 0.15, 0.3, 2.4, 0.1, 0.3], device=cuda)
+    args = (d, (12345, (-7) & 0xFFFFFFFF), sigma, prm, False)
+    got = _launched("grain_apply", grain_ops.grain_apply, *args)
+    assert (got - _plain(grain_ops.grain_apply, *args)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+@pytest.mark.parametrize("hw", [(70, 130), (70, 132), (5, 7), (129, 260)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("n", [1, 3, 5, 13])
+def test_grain_field_paths(cuda, n, hw, bw):
+    """K7 on every path and both store forms (W % 4), within 1e-5."""
+    args = ((0xDEADBEEF, (-7) & 0xFFFFFFFF), hw, _GRAIN_SIGMA[n])
+    before = kb.launches["grain_field"]
+    got = grain_ops.grain_field(*args, bw=bw, device=cuda)
+    assert kb.launches["grain_field"] == before + 1
+    with kb.plain_reference():
+        ref = grain_ops.grain_field(*args, bw=bw, device=cuda)
+    assert (got - ref).abs().max().item() <= 1e-5

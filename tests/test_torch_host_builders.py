@@ -86,13 +86,17 @@ def _jax_parts():
 
 
 def _assert_bundles_equal(tb, jb):
-    """The JAX bundle's keys and values, plus the host copy of ``m_in``
-    (``m_in_host``, read-only), equal to it and to the device copy."""
-    assert set(tb) == set(jb) | {"m_in_host"}
-    host = tb["m_in_host"]
-    assert isinstance(host, np.ndarray) and host.dtype == np.float32 and not host.flags.writeable
-    np.testing.assert_array_equal(host, np.asarray(jb["m_in"]))
-    np.testing.assert_array_equal(host, tb["m_in"].cpu().numpy())
+    """The JAX bundle's keys and values, plus the host copies of ``m_in``
+    (``m_in_host``) and of K3's packed print vector (``pvec_host``), both
+    read-only float32, equal to the JAX values and to the device copies."""
+    assert set(tb) == set(jb) | {"m_in_host", "pvec_host"}
+    for key in ("m_in_host", "pvec_host"):
+        host = tb[key]
+        assert isinstance(host, np.ndarray) and host.dtype == np.float32 and not host.flags.writeable, key
+    np.testing.assert_array_equal(tb["m_in_host"], np.asarray(jb["m_in"]))
+    np.testing.assert_array_equal(tb["m_in_host"], tb["m_in"].cpu().numpy())
+    np.testing.assert_array_equal(tb["pvec_host"], np.asarray(jpack(jb)))
+    np.testing.assert_array_equal(tb["pvec_host"], tpack(tb).cpu().numpy())
     for k, v in jb.items():
         if isinstance(v, tuple):
             assert len(tb[k]) == len(v)
@@ -128,6 +132,7 @@ def test_pack_print_vec_layout():
     got = tpack(tb)
     assert got.dtype == torch.float32 and got.shape == (61,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jpack(jb)))
+    np.testing.assert_array_equal(tb["pvec_host"], got.numpy())
     assert got[60] == np.float32(0.7) and got[59] == np.float32(0.8)
 
 

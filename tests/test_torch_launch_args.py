@@ -140,6 +140,12 @@ def test_structs_match_the_kernel_sources():
     assert names == [f for f, _ in sep_rank.Ranks._fields_]
     assert re.search(r"struct Rank \{\s*int nv, ov, nh, oh;", _source("sep_rank.cuh"))
     assert sep_rank.grain_ops.MAX_TAPS == _constant("MAX_TAPS", "grain.cuh")
+    # K7 / K8's compiled tap counts: the list the wrappers name paths by, and
+    # the dispatch of csrc/grain.cu
+    listed = re.search(r"// COMPILED_TAPS: ([\d ]+)\n", _source("grain.cu")).group(1).split()
+    dispatched = re.findall(r"if \(g\.ntaps == (\d+)\)\n\s+return vec \? launch_taps<\1,", _source("grain.cu"))
+    assert tuple(map(int, listed)) == tuple(map(int, dispatched)) == sep_rank.grain_ops.COMPILED_TAPS
+    assert re.search(r"if \(g\.ntaps == 1\) \{\n.*grain_white_kernel", _source("grain.cu"), re.S)
     assert ctypes.sizeof(sep_rank.GrainArgs) == 12 + 4 * sep_rank.grain_ops.MAX_TAPS
     assert pyramid.UP_MAX_F == _constant("UP_MAX_F", "pyramid.cu")
     assert ctypes.sizeof(pyramid.Phases) == 4 + 12 * pyramid.UP_MAX_F
@@ -570,6 +576,11 @@ class _FakeLib:
                 seen[10] = np.ctypeslib.as_array((ctypes.c_float * 9).from_address(args[10].value)).copy()
             if name == "r2f_upsample_rows":
                 seen[6] = args[6]._obj
+            if name == "r2f_print_encode":
+                seen[1] = np.ctypeslib.as_array((ctypes.c_float * print_encode.PVEC_LEN).from_address(args[1].value)).copy()
+            taps = {"r2f_grain_apply": 9, "r2f_grain_field": 6}.get(name)
+            if taps is not None:
+                seen[taps] = np.ctypeslib.as_array((ctypes.c_float * args[taps + 1]).from_address(args[taps].value)).copy()
             self.calls.append((name, seen))
             return 0
 
@@ -631,3 +642,94 @@ def test_demosaic_launch(fake_launch, dtype, w, offset, norm):
     assert a2[10] is None
     vec = demosaic.vec_path(w, dtype, mosaic.data_ptr(), out.data_ptr())
     assert a1[11] == int(vec) and vec == (offset == 0 and w % (8 if dtype == torch.uint16 else 4) == 0)
+
+
+@pytest.mark.parametrize("kind", ["host", "tensor"])
+def test_print_encode_takes_the_host_print_vec(fake_launch, kind):
+    """K3's 61 parameters go to the kernel by value: a host array (the
+    bundle's pvec_host, as the render passes it) as it is, with no copy
+    from the device; a tensor through the host."""
+    vec = np.random.default_rng(4).normal(size=print_encode.PVEC_LEN).astype(np.float32)
+    vec.setflags(write=False)
+    pvec = vec if kind == "host" else torch.from_numpy(vec.copy())
+    print_encode.print_encode(torch.zeros(3, 4, 8), pvec, "print", False, True, "sRGB")
+    (name, args), = fake_launch.calls
+    assert name == "r2f_print_encode" and kb.launches["print_encode"] == 1
+    np.testing.assert_array_equal(args[1], vec)
+
+
+def _grain_sigma(n: int) -> float:
+    """A correlation sigma whose grain_corr_taps has n taps."""
+    from raw2film_tpu_torch.ops import grain
+
+    sigma = {1: 0.2, 3: 0.547, 5: 0.8, 7: 1.2, 13: 2.3}[n]
+    assert len(grain.grain_corr_taps(sigma)) == n
+    return sigma
+
+
+# (taps, W, storage offset in floats, path, 16-byte)
+GRAIN_LAUNCHES = [
+    (1, 4104, 0, "white", True), (1, 4103, 0, "white", False), (1, 64, 1, "white", False),
+    (3, 8208, 0, "taps", True), (3, 130, 0, "taps", False), (3, 64, 2, "taps", False), (3, 64, 4, "taps", True),
+    (5, 96, 0, "taps", True), (5, 97, 0, "taps", False), (7, 96, 0, "general", True), (13, 71, 0, "general", False),
+]
+
+
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+@pytest.mark.parametrize("n,w,offset,path,vec", GRAIN_LAUNCHES)
+def test_grain_apply_launch(fake_launch, n, w, offset, path, vec, bw):
+    """K8's (K9's) launch: the shape, the seed pair with the row offset
+    wrapped mod 2^32, the L2-normalised float32 taps, and the 16-byte flag
+    of vec_path (W % 4, the density's and output's alignment; K9 takes none).
+    The kernel follows from the tap count (grain_path)."""
+    from raw2film_tpu_torch.ops import grain
+
+    h = 5
+    base = torch.zeros(3 * h * w + offset)
+    d = base[offset:].view(3, h, w)
+    prm = torch.arange(6, dtype=torch.float32)
+    out = grain.grain_apply(d, (0xDEADBEEF, -7), _grain_sigma(n), prm, bw=bw)
+    (name, args), = fake_launch.calls
+    assert name == "r2f_grain_apply" and kb.launches["grain_apply_bw" if bw else "grain_apply"] == 1
+    assert args[2:8] == [3, h, w, int(bw), 0xDEADBEEF, 2**32 - 7]
+    taps = np.float32(grain.grain_corr_taps(_grain_sigma(n)))
+    np.testing.assert_array_equal(args[9], taps)
+    assert args[10] == n and grain.grain_path(n) == path
+    assert args[11] == int(vec and not bw) == int(not bw and grain.vec_path(w, d.data_ptr(), out.data_ptr()))
+
+
+@pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])
+@pytest.mark.parametrize("n,w,offset,path,vec", [c for c in GRAIN_LAUNCHES if c[2] == 0])
+def test_grain_field_launch(fake_launch, monkeypatch, n, w, offset, path, vec, bw):
+    """K7's launch: one channel for black-and-white grain (broadcast to
+    three as a view), three for colour; the taps; the 16-byte flag of the
+    fresh output (W % 4 alone)."""
+    from raw2film_tpu_torch.ops import grain
+
+    monkeypatch.setattr(kb, "use_kernel_on", lambda device: True)
+    field = grain.grain_field((5, 3), (6, w), _grain_sigma(n), bw=bw, device="cpu")
+    (name, args), = fake_launch.calls
+    assert name == "r2f_grain_field" and kb.launches["grain_field"] == 1
+    assert args[1:6] == [1 if bw else 3, 6, w, 5, 3]
+    np.testing.assert_array_equal(args[6], np.float32(grain.grain_corr_taps(_grain_sigma(n))))
+    assert args[7] == n and grain.grain_path(n) == path and args[8] == int(vec)
+    assert tuple(field.shape) == (3, 6, w) and (field.stride(0) == 0) is bw
+
+
+@pytest.mark.parametrize(
+    "w,offsets,vec",
+    [(8208, (0, 0), True), (4104, (0, 0), True), (4103, (0, 0), False), (4104, (4, 0), False), (4104, (0, 8), False),
+     (4104, (16, 32), True), (4104, (0,), True), (2, (0,), False)],
+)
+def test_grain_vec_path(w, offsets, vec):
+    """K7 / K8's 16-byte loads and stores take W a multiple of 4 and every
+    buffer 16-byte aligned."""
+    from raw2film_tpu_torch.ops import grain
+
+    assert grain.vec_path(w, *(0x7F0000000000 + o for o in offsets)) is vec
+
+
+def test_grain_paths():
+    from raw2film_tpu_torch.ops import grain
+
+    assert [grain.grain_path(n) for n in (1, 3, 5, 7, 9, 13, 31)] == ["white", "taps", "taps"] + ["general"] * 4

@@ -157,6 +157,30 @@ def test_fused_path_folds_the_host_m_in(monkeypatch):
         np.testing.assert_array_equal(mat, folded)
 
 
+def test_render_hands_k3_the_host_print_vec(monkeypatch):
+    """The render hands K3 the bundle's host copy of the print vector
+    (pvec_host, equal to the packed device entries), so K3's wrapper reads
+    nothing back from the device: with the device print entries poisoned
+    (NaN) it renders the same codes."""
+    from raw2film_tpu_torch import load_film_bundle
+    from raw2film_tpu_torch.ops import print_encode as tpe
+
+    bundle, cfg = load_film_bundle(h=32, w=48, device="cpu", halation=False, grain=2, sharpness=True,
+                                   highlight_burn=0.3)
+    np.testing.assert_array_equal(bundle["pvec_host"], tpe.pack_print_vec(bundle).numpy())
+    seen = []
+    orig = tpe.print_encode
+    monkeypatch.setattr(tpe, "print_encode", lambda d, pvec, *a, **k: seen.append(pvec) or orig(d, pvec, *a, **k))
+    codes = _codes(32, 48, seed=11)
+    want = render_chain_from_mosaic(codes, REC709_TO_XYZ, bundle, cfg, 5, norm=NORM, device="cpu")
+    nan = float("nan")
+    poisoned = dict(bundle, a=torch.full((3, 3), nan), v=torch.full((3, 3), nan),
+                    to_display=torch.full((3, 3), nan), prt_curve=tuple(torch.full_like(c, nan) for c in bundle["prt_curve"]))
+    got = render_chain_from_mosaic(codes, REC709_TO_XYZ, poisoned, cfg, 5, norm=NORM, device="cpu")
+    assert torch.equal(got, want)
+    assert len(seen) == 2 and all(p is bundle["pvec_host"] for p in seen)
+
+
 def test_chroma_nr_is_refused():
     """The mosaic path refuses chroma NR, as the JAX one does; the staged
     render_chain runs it (ops/chroma_nr.py), within 1 code of JAX."""
