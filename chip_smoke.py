@@ -24,7 +24,12 @@
    (white noise, 3 and 5 taps compiled in, the general path; 16-byte and
    value-by-value stores; K8 on an unaligned view), each timed at the 45 MP
    frame (3 taps) and the half-size frame (1 tap) beside its bound, and
-   built with no stack frame and no spills (``nvcc -Xptxas -v``);
+   built with no stack frame and no spills (``nvcc -Xptxas -v``); K5 and
+   K6 bit-equal to their plain versions on every path (16-byte and scalar,
+   tail runs and tiles, 1 tap, above the by-value cap, all-zero taps), at
+   45 MP profiled (a failure if one call copies anything from the host to
+   the device) and timed in turns with F.conv2d, their scalar path and 1
+   tap, with their registers;
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -46,7 +51,8 @@
    portrait frame at 15 px/mm (540 x 360, where the TPU runs K4) and the
    simplified preview at 30 px/mm, each frame held to a plain-version
    engine within 1 code, its histogram equal to a plain count of its frame,
-   the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP;
+   the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP,
+   timed;
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
    the halation-on render's device time by kernel (a failure if a render
    copies anything from the host to the device, or more than
@@ -564,32 +570,83 @@ def profile_calls(fn, kernel: str, n: int) -> dict:
             "host_ms": host_ms, "h2d_copies": h2d}
 
 
+def conv1d_path(x: torch.Tensor, n: int) -> str:
+    """The K5 / K6 path of a launch on x (its output is freshly allocated,
+    16-byte aligned) with n taps."""
+    p = sep_conv.pack(np.ones(n, np.float32), 0)
+    return f"{'16-byte' if sep_conv.vec_path(x.shape[2], x.data_ptr()) else 'scalar'}, " \
+           f"{'by value' if p.by_value else 'device buffer'}"
+
+
 def check_conv1d(device, full_hw, cfg) -> tuple[dict, dict]:
-    """K5 and K6 at small ragged shapes with 1 to 31 taps, then at 45 MP with
-    the MTF's first 23-tap row."""
+    """K5 and K6 on every path, each bit-equal to the plain version: small
+    ragged shapes with 1 to 31 taps (tail runs and tiles, W % 4 != 0: the
+    scalar path), 259 and 301 taps (above the by-value cap: the device
+    buffer), all-zero taps, an unaligned view; then at 45 MP with the MTF's
+    first 23-tap row (16-byte path) and on an unaligned copy (scalar path),
+    and with 1 tap. The 45 MP 23-tap launch is profiled (device ms; a
+    failure if one call copies anything from the host to the device) and
+    timed in turns with F.conv2d; the 1-tap launch and the scalar path in
+    turns with it (``by_taps``, ``scalar_path``)."""
     g = torch.Generator(device=device).manual_seed(13)
     taps23 = np.asarray(mtf_ops.mtf_taps(cfg.mtf_key, cfg.scale)[1][0, 0])
+    one = np.ones(1, np.float32)
+    regs = ptxas_report(r"conv_[hw]_kernel\w*", "K5/K6")
     out = {}
     for name in ("conv_w", "conv_h"):
         fn = getattr(sep_conv, name)
-        for shape, n in (((2, 40, 45), 1), ((3, 70, 45), 3), ((1, 71, 37), 9), ((2, 90, 130), 31)):
+        for shape, n in (((2, 40, 45), 1), ((3, 70, 45), 3), ((1, 71, 37), 9), ((2, 90, 130), 31),
+                         ((3, 40, 300), 23), ((2, 29, 261), 23), ((2, 5, 14), 31), ((1, 3, 40), 9),
+                         ((1, 1, 1), 3), ((1, 9, 300), 301), ((1, 7, 263), 259), ((1, 11, 12), 0)):
             x = torch.rand(shape, generator=g, device=device)
-            t = np.random.default_rng(n).uniform(-0.2, 1.0, n)
-            t = (t / t.sum()).astype(np.float32)
-            expect(name, max_err(fn(x, t), plain(fn, x, t)), TOL[name], f"{n} taps {shape}")
+            t = np.random.default_rng(n).uniform(-0.2, 1.0, max(n, 5))
+            t = (t / t.sum()).astype(np.float32) if n else np.zeros(5, np.float32)
+            for v in (x, unaligned(x)):
+                got, ref = fn(v, t), plain(fn, v, t)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{name} {len(t)} taps {shape}: not bit-equal ({max_err(got, ref)})")
+            print(f"  {name} {len(t)} taps {shape}: bit-equal on the {conv1d_path(x, len(t))} path and unaligned")
         x = torch.rand((3, *full_hw), generator=g, device=device)
-        err = max_err(fn(x, taps23), plain(fn, x, taps23))
-        expect(name, err, TOL[name], f"{len(taps23)} taps 3x{full_hw[0]}x{full_hw[1]}")
+        off = unaligned(x)
+        paths = {}
+        for v, t in ((x, taps23), (off, taps23), (x, one)):
+            got, ref = fn(v, t), plain(fn, v, t)
+            err = max_err(got, ref)
+            what = f"{len(t)} taps 3x{full_hw[0]}x{full_hw[1]} ({conv1d_path(v, len(t))} path)"
+            expect(name, err, TOL[name], what)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name} {what}: not bit-equal")
+            paths[f"{conv1d_path(v, len(t))}, {len(t)} taps"] = err
+            del got, ref
+        err = paths[f"{conv1d_path(x, len(taps23))}, {len(taps23)} taps"]
         n = int(np.count_nonzero(taps23))
-        k2d = taps23.reshape(1, 1, -1) if name == "conv_w" else taps23.reshape(1, -1, 1)
+        launch = lambda: fn(x, taps23)  # noqa: E731
+        prof = profile_calls(launch, f"{name}_kernel", 10)
+        if prof["h2d_copies"]:
+            raise AssertionError(f"{name}: a launch copied to the device: {prof['h2d_copies']}")
+        k2d = np.repeat(taps23.reshape(1, 1, -1) if name == "conv_w" else taps23.reshape(1, -1, 1), 3, 0)
+        xp = F.pad(x[None], (k2d.shape[2] // 2,) * 2 + (k2d.shape[1] // 2,) * 2, mode="reflect")
+        wt = torch.as_tensor(k2d[:, None], device=device)
+        turns = in_turns({"kernel": launch, "conv2d": lambda: F.conv2d(xp, wt, groups=3),
+                          "scalar_path": lambda: fn(off, taps23), "one_tap": lambda: fn(x, one)}, 10, 3)
+        del xp
+        prof1 = profile_calls(lambda: fn(x, one), f"{name}_kernel", 10)
+        print(f"  {name} 3x{full_hw[0]}x{full_hw[1]} in turns (ms): {turns!r}; profiler, 23 taps {prof!r}; "
+              f"1 tap {prof1!r}; errors by path {paths!r}")
         out[name] = {
             "max_abs_err": err,
-            "ms": med(lambda: fn(x, taps23), 20),
+            "ms": med(launch, 20),
             "plain_ms": med(lambda: plain(fn, x, taps23), 3),
             **bound(x.numel() * 8, x.numel() * 2 * n),
-            "library_ms": library_conv_ms(x, np.repeat(k2d, 3, 0), 10),
+            "library_ms": library_conv_ms(x, k2d, 10),
+            "device_ms": prof["device_ms"],
+            "in_turns": turns,
+            "by_taps": {"1": {"in_turns": turns["one_tap"], "device_ms": prof1["device_ms"],
+                              **bound(x.numel() * 8, x.numel() * 2)}},
+            "scalar_path": {"in_turns": turns["scalar_path"]},
+            "registers": {k: v for k, v in regs.items() if name in k},
         }
-        del x
+        del x, off
     return out["conv_w"], out["conv_h"]
 
 
@@ -656,15 +713,15 @@ def check_grain_field(device, full_hw, cfg) -> dict:
             "by_frame": by_frame}
 
 
-def grain_registers() -> dict:
-    """Registers, stack frame and spills of K7's and K8's kernels from the
-    build's ``nvcc -Xptxas -v`` report (empty when this process did not
-    build the library); fails if one has a stack frame or spills."""
+def ptxas_report(pattern: str, label: str) -> dict:
+    """Registers, stack frame and spills of each kernel whose mangled name
+    holds a match of ``pattern``, from the build's ``nvcc -Xptxas -v``
+    report (empty when this process did not build the library)."""
     import re
 
     found, name = {}, None
     for line in kb.build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(grain_(?:white|taps|general)_kernel(?:I\w+?EE)?)", line)
+        m = re.search(rf"Compiling entry function '\w*?({pattern})", line)
         if m:
             name = m.group(1)
             found[name] = {}
@@ -679,11 +736,19 @@ def grain_registers() -> dict:
             found[name]["registers"] = int(m.group(1))
             name = None
     for k, v in found.items():
-        print(f"  K7/K8 kernel {k}: {v}")
+        print(f"  {label} kernel {k}: {v}")
+    if not found:
+        print(f"  {label} kernels: no ptxas report (the library was not built by this process)")
+    return found
+
+
+def grain_registers() -> dict:
+    """K7's and K8's kernels in the ptxas report; fails if one has a stack
+    frame or spills."""
+    found = ptxas_report(r"grain_(?:white|taps|general)_kernel(?:I\w+?EE)?", "K7/K8")
+    for k, v in found.items():
         if v.get("stack", 1) or v.get("spill_stores", 1) or v.get("spill_loads", 1):
             raise AssertionError(f"{k}: a stack frame or spills: {v}")
-    if not found:
-        print("  K7/K8 kernels: no ptxas report (the library was not built by this process)")
     return found
 
 
@@ -1258,7 +1323,7 @@ def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
                       "codes_equal": equal, **parts}
 
 
-def sep_conv_phase(device, cfg) -> dict:
+def sep_conv_phase(device, cfg, card: str) -> tuple[dict, dict]:
     """(j): ``ops/sep_conv.py`` at 45 MP, the sum of the MTF's four
     23-tap ranks of one channel (K6 then K5 per rank), held to the plain
     versions."""
@@ -1274,7 +1339,11 @@ def sep_conv_phase(device, cfg) -> dict:
     if launches != want:
         raise AssertionError(f"sep_conv_rank: launches {launches}, want {want}")
     expect("sep_conv_rank", max_err(got, plain(sep_conv.sep_conv_rank, x, u, v)), 1e-5, f"3x{H}x{W}")
-    return launches
+    del got
+    times = cuda_ms(lambda: sep_conv.sep_conv_rank(x, u, v), 10)
+    print(f"sep_conv_rank 3x{H}x{W} on {card}: median {statistics.median(times)!r} ms (CUDA events, "
+          f"{len(u)} ranks: {2 * len(u)} launches and {len(u) - 1} adds), all {times!r}")
+    return launches, {"ms": statistics.median(times), "all_ms": times}
 
 
 def host_ms(fn, sync: bool = True) -> tuple[object, float]:
@@ -1431,7 +1500,8 @@ def main() -> int:
             add(phase_launches)
             torch.cuda.empty_cache()
         process_timing = time_processor(device, path, card)
-    add(sep_conv_phase(device, cfg))
+    phase_launches, sep_conv_timing = sep_conv_phase(device, cfg, card)
+    add(phase_launches)
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was launched no time on the main paths")
@@ -1452,7 +1522,7 @@ def main() -> int:
     ]
     print(json.dumps({
         "kernels": kernels, "main_path": timing, "halation_off": timing_off,
-        "process": process_timing, "preview": previews, "card": card,
+        "process": process_timing, "preview": previews, "sep_conv_rank": sep_conv_timing, "card": card,
     }))
     print(card_line())
     print(json.dumps({

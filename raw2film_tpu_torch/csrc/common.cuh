@@ -1,6 +1,6 @@
 // Shared device helpers of the port's kernels: reflect-101 borders, the
 // exp2/log2 forms of raw2film_tpu/ops/fastmath.py, the display encodes,
-// the PCG-3D grain hash and a 4-byte cp.async.
+// the PCG-3D grain hash and cp.async copies.
 //
 // Every entry point is a plain C function (loaded with ctypes by
 // raw2film_tpu_torch/kernels/build.py) that launches on the stream it is
@@ -143,10 +143,25 @@ __device__ __forceinline__ float grain_normal(uint32_t a, uint32_t b) {
 }
 
 // One float from device to shared memory without a register on the way;
-// complete with cp.async.wait_all.
+// complete with cp.async.wait_all (or commit and wait_group).
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+// 16 bytes (both addresses 16-byte aligned), through L2 only.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// Close the thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of the thread's groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace r2f

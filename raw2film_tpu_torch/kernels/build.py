@@ -64,7 +64,7 @@ _SIGNATURES = {
     "r2f_upsample": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "r2f_grain_apply": (_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _I, _P),
     "r2f_grain_field": (_P, _I, _I, _I, _U, _U, _P, _I, _I, _P),
-    "r2f_conv1d": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
+    "r2f_conv1d": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _P),
     "r2f_halation": (_P, _P, _P, _P, _P, _P, _P),
 }
 

@@ -12,7 +12,10 @@ power limit, then one JSON line:
   without the burn; K14 (4 ranks x 27 taps, the development); K10 at f = 4;
   K12 (the /4 level back to 5472 rows); K1 (the 45 MP uint16 mosaic with the
   normalize and a matrix); K8 and K7 at the 45 MP frame (3 grain taps) and
-  the half-size frame (2736 x 4104, 1 tap), and K9 at 45 MP; each held to
+  the half-size frame (2736 x 4104, 1 tap), K9 at 45 MP, K5 and K6 (45 MP,
+  the MTF's first 23-tap row, and 1 tap), ``sep_conv_rank`` (the MTF's 4
+  ranks of one channel: 8 K5/K6 launches and 3 adds) and K11 (the 45 MP
+  mosaic to the half-size frame); each held to
   its plain version first, then timed (CUDA events, median of 20 calls) and
   profiled (device time per launch, host-to-device and device-to-host
   copies); K2's, K7's, K8's and K9's outputs also by a digest of their
@@ -120,7 +123,7 @@ def main() -> int:
     from raw2film_tpu_torch.ops import halation as hal_ops
     from raw2film_tpu_torch.ops import mtf as mtf_ops
     from raw2film_tpu_torch.ops import print_encode as pe
-    from raw2film_tpu_torch.ops import pyramid, sep_rank
+    from raw2film_tpu_torch.ops import pyramid, sep_conv, sep_rank
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -188,6 +191,17 @@ def main() -> int:
         if frame == "45mp":
             kernel("k9", lambda: grain_ops.grain_apply(gd, gseed, sigma, prm, True), 1e-5, "grain_apply_bw", True)
         del gd
+
+    taps23 = np.asarray(v3[0, 0], np.float32)  # the MTF's first 23-tap row
+    x = torch.rand((3, H, W), generator=g, device=dev)
+    for name, fn in (("k5", sep_conv.conv_w), ("k6", sep_conv.conv_h)):
+        kernel(name, lambda fn=fn: fn(x, taps23), 0.0, f"{fn.__name__}_kernel", True)
+        kernel(f"{name}_1tap", lambda fn=fn: fn(x, np.ones(1, np.float32)), 0.0, f"{fn.__name__}_kernel")
+    uj, vj = (np.asarray(t[0]) for t in (u3, v3))
+    kernel("sep_conv_rank", lambda: sep_conv.sep_conv_rank(x, uj, vj), 1e-5, "conv_")
+    half = mosaic_codes(H, W, SEED, dev)
+    kernel("k11", lambda: dm.half_size_decode(half, "RGGB", NORM), 0.0, "half_size")
+    del x, half
 
     _, cfg15 = load_film_bundle(h=540, w=360, device=dev, grain=2, sharpness=True)
     p3, q3 = mtf_ops.mtf_taps(cfg15.mtf_key, cfg15.scale)

@@ -432,17 +432,32 @@ def test_upsample_kernel_runs(cuda, shape, f, out_hw):
     assert (got - _plain(pyramid.bilinear_upsample, x, f, out_hw)).abs().max().item() <= 2e-6
 
 
+# (shape, taps, storage offset in floats): the shapes of the CPU model
+# tests (tests/test_torch_sep_conv.py::MODEL_CASES): n in {1, 3, 9, 23, 31},
+# n above the by-value cap, n > H and > W, H below a run, W % 4 != 0, C = 1,
+# an unaligned view (the scalar path on W % 4 == 0)
+CONV1D_CASES = [
+    ((2, 90, 130), 1, 0), ((2, 90, 130), 9, 0), ((2, 90, 130), 31, 0), ((3, 21, 45), 3, 0),
+    ((1, 37, 36), 9, 0), ((3, 40, 300), 23, 0), ((2, 29, 261), 23, 0), ((2, 5, 14), 31, 0),
+    ((1, 3, 40), 9, 0), ((1, 1, 1), 3, 0), ((1, 9, 300), 301, 0), ((1, 7, 263), 259, 0),
+    ((3, 70, 264), 23, 1),
+]
+
+
 @pytest.mark.parametrize("name", ["conv_w", "conv_h"])
-@pytest.mark.parametrize("n", [1, 9, 31])
-def test_conv1d_kernel(cuda, name, n):
-    """K5 / K6 on a ragged frame: bit-equal to the plain version (the same
+@pytest.mark.parametrize("shape,n,offset", CONV1D_CASES)
+def test_conv1d_kernel(cuda, name, shape, n, offset):
+    """K5 / K6 on each path (16-byte and scalar, tail runs and tiles, 1 tap,
+    above the by-value cap): bit-equal to the plain version (the same
     multiplies and adds in the same order)."""
     from raw2film_tpu_torch.ops import sep_conv
 
     t = np.random.default_rng(n).uniform(-0.2, 1.0, n).astype(np.float32)
-    x = torch.rand((2, 90, 130), device=cuda)
-    got = _launched(name, getattr(sep_conv, name), x, t)
-    assert torch.equal(got, _plain(getattr(sep_conv, name), x, t))
+    base = torch.rand(int(np.prod(shape)) + offset, device=cuda)
+    x = base[offset:].view(shape)
+    for _ in range(2):  # the second launch finds the packed taps (and buffer) cached
+        got = _launched(name, getattr(sep_conv, name), x, t)
+        assert torch.equal(got, _plain(getattr(sep_conv, name), x, t))
 
 
 @pytest.mark.parametrize("bw", [False, True], ids=["colour", "bw"])

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
-from raw2film_tpu_torch.ops import burn, chroma_nr, conv, halation, mtf, print_encode, pyramid, sep_rank
+from raw2film_tpu_torch.ops import burn, chroma_nr, conv, halation, mtf, print_encode, pyramid, sep_conv, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "raw2film_tpu_torch", "csrc")
@@ -578,6 +578,9 @@ class _FakeLib:
                 seen[6] = args[6]._obj
             if name == "r2f_print_encode":
                 seen[1] = np.ctypeslib.as_array((ctypes.c_float * print_encode.PVEC_LEN).from_address(args[1].value)).copy()
+            if name == "r2f_conv1d":
+                t = sep_conv.Taps.from_address(args[5])
+                seen[5] = (t.off, t.n, np.ctypeslib.as_array(t.t)[: min(t.n, sep_conv.MAX_TAPS)].copy(), args[5])
             taps = {"r2f_grain_apply": 9, "r2f_grain_field": 6}.get(name)
             if taps is not None:
                 seen[taps] = np.ctypeslib.as_array((ctypes.c_float * args[taps + 1]).from_address(args[taps].value)).copy()
@@ -656,6 +659,51 @@ def test_print_encode_takes_the_host_print_vec(fake_launch, kind):
     (name, args), = fake_launch.calls
     assert name == "r2f_print_encode" and kb.launches["print_encode"] == 1
     np.testing.assert_array_equal(args[1], vec)
+
+
+@pytest.mark.parametrize("name", ["conv_w", "conv_h"])
+@pytest.mark.parametrize("n,w,offset", [(23, 8208, 0), (23, 8207, 0), (23, 64, 1), (1, 64, 0), (301, 96, 0)])
+def test_conv1d_takes_its_taps_by_value(fake_launch, monkeypatch, name, n, w, offset):
+    """K5 / K6 pass their taps by value: a pointer to the struct that pack
+    cached for the vector (the same one on every call), no device buffer up
+    to MAX_TAPS packed taps, above it one buffer uploaded once; no call
+    builds a tensor from host data. The 16-byte flag follows vec_path."""
+    made = []
+    for fn in ("tensor", "as_tensor"):
+        real = getattr(torch, fn)
+        monkeypatch.setattr(torch, fn, lambda *a, _real=real, **k: (made.append(a), _real(*a, **k))[1])
+    t = np.random.default_rng(n + w).uniform(-0.2, 1.0, n).astype(np.float32)
+    base = torch.zeros(2 * 3 * w + offset)
+    img = base[offset:].view(2, 3, w)
+    for _ in range(3):
+        out = getattr(sep_conv, name)(img, list(t) if n == 1 else t)
+    axis_code = 0 if name == "conv_w" else 1
+    p = sep_conv.pack(t, axis_code)
+    assert len(fake_launch.calls) == 3 and kb.launches[name] == 3
+    for call, args in fake_launch.calls:
+        assert call == "r2f_conv1d" and args[2:5] == [2, 3, w] and args[7] == axis_code
+        off, count, taps, ptr = args[5]
+        assert ptr == p.args_ptr and (off, count) == (p.off, p.taps.size)
+        if p.by_value:
+            assert args[6] is None
+            np.testing.assert_array_equal(taps, p.taps)
+        else:
+            assert args[6] == sep_conv.device_taps(p, "cpu").data_ptr()
+        assert args[8] == int(sep_conv.vec_path(w, img.data_ptr(), out.data_ptr())) == int(w % 4 == 0 and not offset)
+    assert p.by_value is (n <= sep_conv.MAX_TAPS)
+    assert len(made) == (0 if p.by_value else 1)  # the buffer, once
+
+
+def test_conv1d_struct_matches_the_source():
+    src = _source("conv1d.cu")
+    assert sep_conv.MAX_TAPS == _constant("MAX_TAPS", "conv1d.cu")
+    assert "sizeof(Taps) == 8 + 4 * MAX_TAPS" in src
+    assert ctypes.sizeof(sep_conv.Taps) == 8 + 4 * sep_conv.MAX_TAPS
+    fields = re.search(r"struct Taps \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"(\w+)(?:\[\w+\])?;", fields) == [f for f, _ in sep_conv.Taps._fields_]
+    # K5's window alignment and tap groups, as the kernel reads them
+    assert "tp.off % 4 != 0 || tp.n % 8 != 0" in src
+    assert (sep_conv.K5_ALIGN, sep_conv.K5_GROUP) == (4, 8)
 
 
 def _grain_sigma(n: int) -> float:
