@@ -56,9 +56,20 @@
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
    the halation-on render's device time by kernel (a failure if a render
    copies anything from the host to the device, or more than
-   D2H_PER_RENDER = 0 from the device to the host), and prints one JSON line
-   of per-kernel results;
-8. prints {"ok": true, "device": {...}} as its last line.
+   D2H_PER_RENDER = 0 from the device to the host);
+8. (k) renders the DNG at full res with an ICC transform (a float callable,
+   baked into CP factors once per transform): (b)'s launch counts with K3
+   once in float mode, within 1 code of a plain-version Processor, a
+   profiled render with the factors attached copying nothing to the device,
+   the CP apply's device ms and extra peak memory at 45 MP; then an ImageCms
+   sRGB soft proof at the CLI defaults; (l) runs the CLI (``cli.main``, its
+   defaults, PNG) over two seeded DNGs: exit code 0, each PNG equal to
+   ``process()`` of its file with the same launch counts, ms per image; (m)
+   serves the viewer on localhost: one parameter change, the frame within 1
+   code of a plain-version engine's, JPEGs from /api/frame.jpg and
+   /api/thumb/0, /api/about reporting CUDA;
+9. prints one JSON line of per-kernel results, then {"ok": true, "device":
+   {...}} as its last line.
 
 Any failed check ends the script with a traceback and a non-zero exit.
 """
@@ -82,6 +93,7 @@ from raw2film_tpu_torch import PreviewEngine, Processor, load_film_bundle, rende
 from raw2film_tpu_torch import data as ref_data
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
 from raw2film_tpu_torch.io import dng
+from raw2film_tpu_torch.io import icc as ticc
 from raw2film_tpu_torch.io import raw as traw
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import burn as burn_ops
@@ -95,6 +107,7 @@ from raw2film_tpu_torch.ops import pyramid
 from raw2film_tpu_torch.ops import sep_conv, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 from raw2film_tpu_torch.ops.histogram import generate_histogram, histogram_counts, render_histogram
+from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
 from raw2film_tpu_torch.pipeline import geometry
 from raw2film_tpu_torch.pipeline import processor as tproc
 from raw2film_tpu_torch.pipeline.render import build_render_config
@@ -1423,6 +1436,278 @@ def time_processor(device, path: str, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------ ICC, CLI, viewer
+
+
+def icc_gamma(x):
+    """The float ICC transform of phase (k): a callable, so the bake needs no
+    profile file (io/icc.py::apply_transform_to_lut)."""
+    return np.clip(x, 0, 1) ** 1.35
+
+
+def fused_render(proc: Processor, path: str, kw: dict, icc):
+    """The fused path's render of ``path`` as process() runs it, with the
+    mosaic uploaded once (before the returned callable is called) and the
+    ICC factors ``icc`` attached: for profiling a render alone."""
+    fast, _ = proc._try_load_mosaic_impl(dng.read_raw(path), dict(half_size=False, max_scale=None,
+                                                                    lens_correction=True))
+    mosaic, norm, pattern, cam, gain, crop = fast
+    mos = torch.as_tensor(mosaic, device=proc.device)
+    neg, prt = tproc._resolve_stock(kw["negative_film"]), tproc._resolve_stock(kw["print_film"])
+    merged = dict(tproc._MERGED_DEFAULTS, grain=kw["grain"], sharpness=kw["sharpness"],
+                  highlight_burn=kw["highlight_burn"])
+    bundle, mode = proc.load_film_bundle(neg, prt, merged)
+    out_h, out_w = (crop[2], crop[3]) if crop is not None else mosaic.shape
+    cfg = build_render_config(neg, prt, mode, max(out_h, out_w) / 36.0, merged)
+    bundle, cfg = proc._attach_icc(bundle, cfg, icc)
+    seed = tproc.grain_seed(tproc.fold_in(tproc.prng_key(kw["seed"]), 0))  # process()'s grain key
+    return lambda: render_chain_from_mosaic(mos, cam, bundle, cfg, seed, pattern, gain, crop,
+                                            tuple(float(v) for v in norm), device=proc.device)
+
+
+def icc_phase(device, path: str, tmp: str, card: str) -> tuple[dict, dict]:
+    """(k): process() of the DNG at full res (the fused path) with a float
+    ICC transform: (b)'s launch counts with K3 launched once, in float mode;
+    within 1 code of a plain-version Processor with the same transform; the
+    factors baked and uploaded once, so a render with them attached copies
+    nothing to the device (profiled); the CP apply's device ms and extra
+    peak memory at 45 MP, the render's ms and peak. Then an ImageCms soft
+    proof (sRGB to sRGB) at the CLI defaults, where Pillow imports."""
+    overrides, want, shape = PHASES["b"]
+    kw = dict(SETTINGS, **overrides, icc_transform=icc_gamma)
+    label = "process (k) full res, ICC"
+    proc = Processor(device=device)
+    k3_outputs = []
+    orig_k3 = pe.print_encode
+
+    def k3_spy(*args, **kwargs):
+        out = orig_k3(*args, **kwargs)
+        k3_outputs.append(out.dtype)
+        return out
+
+    pe.print_encode = k3_spy
+    try:
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        out = proc.process(path, cache=False, **kw)
+        torch.cuda.synchronize()
+        launches = dict(kb.launches)
+    finally:
+        pe.print_encode = orig_k3
+    print(f"{label}: launches {launches}, K3 outputs {k3_outputs}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    if k3_outputs != [torch.float32]:
+        raise AssertionError(f"{label}: K3 ran {k3_outputs}, want once in float mode")
+    if out.dtype != np.uint8 or out.shape != shape:
+        raise AssertionError(f"{label}: output {out.dtype} {out.shape}, want {shape}")
+    ref = plain(Processor(device=device).process, path, cache=False, **kw)
+    diff = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+    worst, equal = int(diff.max()), float((diff == 0).mean())
+    off = proc.process(path, cache=False, **dict(kw, icc_transform=None))
+    print(f"{label} vs plain versions: max {worst} code, {equal!r} of codes equal; output mean "
+          f"{float(out.mean())!r}, without the transform {float(off.mean())!r}")
+    if worst > 1:
+        raise AssertionError(f"{label} differs from the plain path by {worst} codes")
+    if not 10.0 < float(out.mean()) < float(off.mean()) - 1.0:
+        raise AssertionError(f"{label}: the transform (x ** 1.35) did not darken the print")
+    del ref, diff, off
+
+    icc = proc._icc_arrays(icc_gamma)
+    if any(a is not b for a, b in zip(icc, proc._icc_arrays(icc_gamma))):
+        raise AssertionError(f"{label}: the CP factors were not cached per transform")
+    render = fused_render(proc, path, kw, icc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = render()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(first.cpu().numpy().transpose(1, 2, 0), out):
+        raise AssertionError(f"{label}: the profiled render differs from process()")
+    del first
+    profile(render, "ICC render (k)")
+    ms = cuda_ms(render, 5, warmup=1)
+
+    u, v, w = icc
+    x = torch.rand((3, H, W), generator=torch.Generator(device=device).manual_seed(21), device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = apply_lut_3d_cp(x, u, v, w, scale=1.0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - y.numel() * y.element_size()
+    plane = H * W * 4
+    cp_ms = cuda_ms(lambda: apply_lut_3d_cp(x, u, v, w, scale=1.0), 5)
+    cp_host = apply_lut_3d_cp(x[:, :64, :256].cpu(), u.cpu(), v.cpu(), w.cpu(), scale=1.0)
+    expect("apply_lut_3d_cp", max_err(y[:, :64, :256].cpu(), cp_host), 1e-5, "card vs CPU, 3x64x256 corner")
+    del x, y
+    result = {
+        "render_ms": statistics.median(ms), "render_all_ms": ms, "render_peak_bytes": peak,
+        "codes_equal": equal, "cp_apply_ms": statistics.median(cp_ms), "cp_apply_all_ms": cp_ms,
+        "cp_apply_extra_peak_bytes": extra, "cp_apply_extra_peak_planes": extra / plane,
+    }
+    print(f"{label} on {card}: render median {result['render_ms']!r} ms (CUDA events, all {ms!r}), peak "
+          f"{peak} bytes; CP apply 3x{H}x{W} rank {u.shape[1]}: median {result['cp_apply_ms']!r} ms, all "
+          f"{cp_ms!r}, extra peak {extra} bytes ({extra / plane!r} planes of {plane} bytes)")
+
+    try:
+        from PIL import ImageCms
+    except ImportError as e:
+        print(f"{label}: Pillow's ImageCms does not import ({e}); the soft proof was not run")
+        return launches, result
+    prof = os.path.join(tmp, "srgb.icc")
+    with open(prof, "wb") as f:
+        f.write(ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes())
+    proof = ticc.build_softproof_transform(prof)
+    _, want_a, shape_a = PHASES["a"]
+    label = "process (k) CLI defaults, ImageCms sRGB soft proof"
+    kb.reset_launches()
+    out = proc.process(path, cache=False, **dict(SETTINGS, icc_transform=proof))
+    torch.cuda.synchronize()
+    proof_launches = dict(kb.launches)
+    print(f"{label}: launches {proof_launches}")
+    if proof_launches != want_a or out.shape != shape_a:
+        raise AssertionError(f"{label}: launches {proof_launches} (want {want_a}), shape {out.shape}")
+    ref = plain(Processor(device=device).process, path, cache=False, **dict(SETTINGS, icc_transform=proof))
+    worst = int(np.abs(out.astype(np.int16) - ref.astype(np.int16)).max())
+    print(f"{label} vs plain versions: max {worst} code")
+    if worst > 1:
+        raise AssertionError(f"{label} differs from the plain path by {worst} codes")
+    for k, n in proof_launches.items():
+        launches[k] += n
+    return launches, result
+
+
+def write_roll(device, folder: str) -> list[str]:
+    """Two seeded 45 MP DNGs in ``folder`` (the seeds SEED + 1, SEED + 2)."""
+    os.makedirs(folder)
+    paths = []
+    for i, name in enumerate(("a.dng", "b.dng")):
+        codes = mosaic_codes(H, W, SEED + 1 + i, device).cpu().numpy()
+        paths.append(os.path.join(folder, name))
+        dng.write_dng(paths[-1], codes, black_level=512, white_level=24000)
+    return paths
+
+
+def cli_phase(device, folder: str, paths: list, out_dir: str, card: str) -> tuple[dict, dict]:
+    """(l): the CLI (``cli.main``) over the folder at its defaults (the
+    first CUDA device, half-size decode) with lossless PNG output: exit code
+    0 and one PNG per DNG, each equal to the port Processor's process() of
+    the file under the CLI's merged settings and seed, with the same launch
+    counts. BatchRunner records a failed item instead of raising, so a
+    non-zero exit fails here."""
+    from PIL import Image
+
+    from raw2film_tpu_torch import cli
+    from raw2film_tpu_torch.pipeline.params import apply_film_format, merge_params
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main([folder, "-o", out_dir, "--ext", ".png"])
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(kb.launches)
+    print(f"cli (l) over {len(paths)} DNGs: exit code {rc}, launches {launches}, {wall!r} ms")
+    if rc != 0:
+        raise AssertionError(f"cli (l): exit code {rc}")
+    names = sorted(os.listdir(out_dir))
+    if names != ["a.png", "b.png"]:
+        raise AssertionError(f"cli (l): outputs {names}")
+    proc = Processor(device=device)
+    want = counts()
+    for path in paths:
+        merged = merge_params(None, {})
+        merged.pop("profile", None)
+        apply_film_format(merged)
+        kb.reset_launches()
+        ref = proc.process(path, merged.pop("negative_film"), print_film=merged.pop("print_film"),
+                           half_size=True, max_scale=400.0, seed=0, **merged)
+        for k, n in kb.launches.items():
+            want[k] += n
+        with Image.open(os.path.join(out_dir, os.path.basename(path)[:-4] + ".png")) as im:
+            got = np.asarray(im)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            raise AssertionError(f"cli (l): {path}'s PNG differs from process() of the file")
+    if launches != want:
+        raise AssertionError(f"cli (l): launches {launches}, process() of the files {want}")
+    print(f"cli (l) on {card}: each PNG equal to process() of its file; {wall / len(paths)!r} ms per "
+          f"image (host clock around cli.main: decode, render, PNG encode; host-bound, not a claim)")
+    return launches, {"ms_per_image": wall / len(paths), "wall_ms": wall}
+
+
+def viewer_phase(device, folder: str, card: str) -> tuple[dict, dict]:
+    """(m): the viewer's HTTP handler over a ViewerState on the default
+    device, on localhost port 0: one parameter change through /api/params,
+    /api/wait, then /api/frame.jpg and /api/thumb/0 (non-empty JPEGs); the
+    frame the engine rendered (before its JPEG encode) within 1 code of a
+    plain-version engine's frame for the same request; /api/about reports
+    CUDA."""
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from raw2film_tpu_torch import viewer
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=300) as r:
+            return r.status, r.read()
+
+    frames = []
+    orig_jpeg = viewer._jpeg_bytes
+    viewer._jpeg_bytes = lambda a, quality=88: frames.append(a) or orig_jpeg(a, quality)
+    state = viewer.ViewerState(folder)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), viewer.make_handler(state))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        about = json.loads(get(base + "/api/about")[1])
+        print(f"viewer (m) /api/about: {about}")
+        if about["backend"] != "cuda" or not about["device"].startswith("cuda"):
+            raise AssertionError(f"viewer (m): /api/about reports {about}")
+        params = {"exp_comp": 0.3}
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/api/params", method="POST",
+                                     data=json.dumps({"i": 0, "params": params}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if not json.loads(r.read())["ok"]:
+                raise AssertionError("viewer (m): /api/params refused")
+        seq = 0
+        while seq < 1:
+            doc = json.loads(get(base + f"/api/wait?since={seq}")[1])
+            if doc.get("error"):
+                raise AssertionError(f"viewer (m): {doc['error']}")
+            seq = doc["seq"]
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kb.launches)
+        want = counts(half_size=1, print_encode=1)  # the simplified preview, no burn
+        print(f"viewer (m) frame: launches {launches}, {frame_ms!r} ms from the POST to /api/wait")
+        if launches != want:
+            raise AssertionError(f"viewer (m): launches {launches}, want {want}")
+        for what in ("/api/frame.jpg", "/api/thumb/0"):
+            code, body = get(base + what)
+            if code != 200 or len(body) < 100 or body[:2] != b"\xff\xd8":
+                raise AssertionError(f"viewer (m): {what} gave {code}, {len(body)} bytes")
+            print(f"viewer (m) {what}: {len(body)} bytes of JPEG")
+        frame = frames[0]
+        name = os.path.basename(state.files[0])
+        kw = dict(state._render_kwargs(name), max_scale=viewer.PREVIEW_MAX_SCALE)
+        ref = run_engine(PlainProcessor(device=device), state.files[0], kw, 1)[0][0][0]
+        if ref.shape != frame.shape:
+            raise AssertionError(f"viewer (m): frame {frame.shape}, plain engine {ref.shape}")
+        worst = int(np.abs(frame.astype(np.int16) - ref.astype(np.int16)).max())
+        print(f"viewer (m) on {card}: frame {frame.shape} vs a plain-version engine: max {worst} code")
+        if worst > 1:
+            raise AssertionError(f"viewer (m): the frame differs from the plain engine by {worst} codes")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+        viewer._jpeg_bytes = orig_jpeg
+    return launches, {"frame_ms": frame_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1500,6 +1785,15 @@ def main() -> int:
             add(phase_launches)
             torch.cuda.empty_cache()
         process_timing = time_processor(device, path, card)
+        phase_launches, icc_timing = icc_phase(device, path, tmp, card)
+        add(phase_launches)
+        torch.cuda.empty_cache()
+        roll = os.path.join(tmp, "roll")
+        paths = write_roll(device, roll)
+        phase_launches, cli_timing = cli_phase(device, roll, paths, os.path.join(tmp, "export"), card)
+        add(phase_launches)
+        phase_launches, viewer_timing = viewer_phase(device, roll, card)
+        add(phase_launches)
     phase_launches, sep_conv_timing = sep_conv_phase(device, cfg, card)
     add(phase_launches)
     for name, n in total.items():
@@ -1522,7 +1816,8 @@ def main() -> int:
     ]
     print(json.dumps({
         "kernels": kernels, "main_path": timing, "halation_off": timing_off,
-        "process": process_timing, "preview": previews, "sep_conv_rank": sep_conv_timing, "card": card,
+        "process": process_timing, "preview": previews, "sep_conv_rank": sep_conv_timing,
+        "icc": icc_timing, "cli": cli_timing, "viewer": viewer_timing, "card": card,
     }))
     print(card_line())
     print(json.dumps({

@@ -7,12 +7,15 @@ it needs (film science, RAW readers, the native decoders). It imports
 
 ``Processor().process()`` renders a RAW file (or an XYZ image) to a uint8
 film print on the fused full-res path or the staged one, and
-``PreviewEngine`` drives it interactively. Every TPU kernel of the JAX
+``PreviewEngine`` drives it interactively; ``raw2film-tpu-torch`` (or
+``python -m raw2film_tpu_torch``) is the batch CLI, and ``--serve`` its
+local web viewer. Every TPU kernel of the JAX
 package has a hand-written CUDA counterpart (``csrc/``); the entry points
 run on the first CUDA device unless given ``device="cpu"``, where the
 kernels' plain PyTorch versions run.
 """
 
+from raw2film_tpu_torch._version import __version__
 from raw2film_tpu_torch.pipeline.preview import PreviewEngine
 from raw2film_tpu_torch.pipeline.processor import Processor
 from raw2film_tpu_torch.pipeline.render import (
@@ -25,6 +28,7 @@ from raw2film_tpu_torch.pipeline.render import (
 )
 
 __all__ = [
+    "__version__",
     "PreviewEngine",
     "Processor",
     "RenderConfig",

@@ -12,9 +12,9 @@ import threading
 from collections.abc import Callable
 
 import numpy as np
-from torch.profiler import record_function
 
 from raw2film_tpu_torch.ops.histogram import generate_histogram
+from raw2film_tpu_torch.utils.trace import stage_timer
 
 
 class PreviewEngine:
@@ -73,9 +73,9 @@ class PreviewEngine:
                 src, params = self._pending
                 self._pending = None
             try:
-                with record_function("preview.render"), self.proc_lock:
+                with stage_timer("preview.render"), self.proc_lock:
                     image = self.processor.process(src, **params)
-                with record_function("preview.histogram"):
+                with stage_timer("preview.histogram"):
                     hist = generate_histogram(
                         image.transpose(2, 0, 1), self.histogram_height,
                         device=self.processor.device,

@@ -19,10 +19,13 @@ requires CUDA and never falls back to the CPU. The grain key is JAX's
 render's grain matches the JAX Processor's. The decode caches are keyed on
 the file's path, ``mtime_ns`` and size.
 
+An ICC transform (``icc_transform``) is baked into a CP-factored output
+LUT on the host (``io/icc.py::bake_output_cp``) and uploaded once per
+transform object; the render applies it before the 8-bit rounding.
+
 Not ported here: the TPU's scoped-VMEM retry ladder and the JIT cache (the
-port compiles nothing per shape), a device mesh for ``process_batch``
-(ROADMAP.md, queue 1 item 8) and the ICC output LUT (``ops/lut.py``), which
-raise NotImplementedError.
+port compiles nothing per shape), and a device mesh for ``process_batch``
+(ROADMAP.md, queue 1 item 7), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -219,6 +222,7 @@ class Processor:
         self._image_cache_key = self._image_cache = None
         self._mosaic_cache_key = self._mosaic_cache = None
         self._bundle_key = self._bundle = None
+        self._icc_cache: dict = {}
         self.last_metadata: dict = {}
 
     def register_lens(self, name: str) -> bool:
@@ -396,11 +400,37 @@ class Processor:
         key = fold_in(prng_key(seed), 0)
         return self._render(
             src, _resolve_stock(negative_film), _resolve_stock(print_film), load_kw, merged,
-            key, cache, fused_decode, icc_transform, finish_kw,
+            key, cache, fused_decode, self._icc_arrays(icc_transform), finish_kw,
         )
 
+    def _icc_arrays(self, icc_transform):
+        """CP-factored (u, v, w) device tensors for an ICC transform, cached
+        per transform object (None for no transform)."""
+        if icc_transform is None:
+            return None
+        from raw2film_tpu_torch.io.icc import bake_output_cp
+
+        key = id(icc_transform)
+        cached = self._icc_cache.get(key)
+        if cached is None or cached[0] is not icc_transform:
+            u, v, w_bc, err = bake_output_cp(icc_transform)
+            arrays = tuple(torch.as_tensor(a, device=self.device) for a in (u, v, w_bc))
+            cached = (icc_transform, arrays, err)
+            self._icc_cache[key] = cached
+        return cached[1]
+
+    @staticmethod
+    def _attach_icc(bundle: dict, cfg, icc):
+        """The bundle carrying the CP factors ``icc`` (from :meth:`_icc_arrays`)
+        and cfg.icc set, so the render applies them before the rounding."""
+        if icc is None:
+            return bundle, cfg
+        bundle = dict(bundle)
+        bundle["icc_u"], bundle["icc_v"], bundle["icc_w"] = icc
+        return bundle, dataclasses.replace(cfg, icc=True)
+
     def _render(self, src, negative_film, print_film, load_kw, merged, key, cache, fused,
-                icc_transform, finish_kw) -> np.ndarray:
+                icc, finish_kw) -> np.ndarray:
         """One image through the fused or the staged path, then _finish."""
         fast = parsed = None
         if fused:
@@ -419,8 +449,7 @@ class Processor:
         bundle, prt_mode = self.load_film_bundle(negative_film, print_film, merged)
         scale = max(out_hw) / max(load_kw["frame_width"], load_kw["frame_height"])
         cfg = build_render_config(negative_film, print_film, prt_mode, scale, merged)
-        if icc_transform is not None:
-            cfg = dataclasses.replace(cfg, icc=True)  # render_chain raises: ops/lut.py
+        bundle, cfg = self._attach_icc(bundle, cfg, icc)
         seed = grain_seed(key)
         if fast is None:
             out = render_chain(xyz, bundle, cfg, seed)
@@ -524,10 +553,11 @@ class Processor:
                       **params) -> list[np.ndarray]:
         """Render many images, one at a time on this Processor's device.
         Image i takes the grain key fold_in(PRNGKey(seed), i), as in the JAX
-        Processor, so image 0 equals ``process(srcs[0], seed=seed)``."""
+        Processor, so image 0 equals ``process(srcs[0], seed=seed)``. An
+        ICC transform is baked and attached once for the batch."""
         if mesh is not None:
             raise NotImplementedError(
-                "process_batch over a device mesh is not ported yet (ROADMAP.md, queue 1 item 8)"
+                "process_batch over a device mesh is not ported yet (ROADMAP.md, queue 1 item 7)"
             )
         negative_film = _resolve_stock(negative_film)
         print_film = _resolve_stock(params.pop("print_film", None))
@@ -542,10 +572,11 @@ class Processor:
         finish_kw = {k: params.get(k, d) for k, d in
                      (("canvas_mode", "No"), ("canvas_scale", 1.0), ("canvas_ratio", 1.0))}
         base = prng_key(seed)
+        icc = self._icc_arrays(params.get("icc_transform"))
         return [
             self._render(
                 src, negative_film, print_film, load_kw, merged, fold_in(base, idx), False,
-                bool(params.get("fused_decode", True)), params.get("icc_transform"), finish_kw,
+                bool(params.get("fused_decode", True)), icc, finish_kw,
             )
             for idx, src in enumerate(srcs)
         ]

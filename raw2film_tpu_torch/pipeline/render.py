@@ -14,11 +14,12 @@ The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
        colour (K8), black-and-white (K9), or any other mode the field
        alone (K7) and the add in plain torch
     -> [burn: small map, its blur on K2] -> print/encode (K3)
+    -> [ICC output LUT: K3 encodes to float, then the CP-factored LUT
+        (``ops/lut.py``), the clip to [0, 1] and the rounding to uint8]
 
 K2 launches on frames the TPU's K2 declines stand for K4 (``ops/sep_rank.py``).
-The plain development is PyTorch, as it is XLA on the TPU. The ICC output
-LUT raises NotImplementedError (not ported); no stage is ever skipped
-silently.
+The plain development and the CP LUT apply are PyTorch, as they are XLA on
+the TPU. No stage is ever skipped silently.
 
 Planar (3, H, W) float32 at every public function; the film parameters are
 a dict of float32 tensors and a host copy of the input matrix
@@ -41,6 +42,7 @@ from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops import halation as hal_ops
+from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
 
@@ -273,12 +275,9 @@ def render_chain(
     input_is_exposure: bool = False,
 ) -> torch.Tensor:
     """(3, H, W) float32 camera XYZ (or, with ``input_is_exposure``, the
-    chain's exposure image) -> (3, H, W) uint8 encoded output."""
-    if cfg.icc:
-        raise NotImplementedError(
-            "the ICC output LUT needs the CP-factored LUT apply (ops/lut.py), which is not "
-            "ported yet (ROADMAP.md, queue 1)"
-        )
+    chain's exposure image) -> (3, H, W) uint8 encoded output. With
+    ``cfg.icc`` the bundle carries the ICC output LUT's CP factors
+    (``icc_u``, ``icc_v``, ``icc_w``), applied before the rounding."""
     if input_is_exposure:
         ep = xyz.contiguous()  # a cropped exposure image is a strided view
     else:
@@ -341,10 +340,20 @@ def render_chain(
         burn_args = burn_ops.burn_smallmap(d, bundle["d_ref_green"], cfg.burn_scale)
         if burn_args is None:
             d = burn_ops.burn(d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale)
-    return pe.print_encode(
+    out = pe.print_encode(
         d.contiguous(), bundle["pvec_host"], cfg.print_mode, cfg.shadow_comp,
-        cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize, burn=burn_args,
+        cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize and not cfg.icc, burn=burn_args,
     )
+    if not cfg.icc:
+        return out
+    # The ICC display/softproof transform, baked into a CP-factored LUT and
+    # applied to the encoded float image before the 8-bit rounding.
+    rgb = torch.clamp(
+        apply_lut_3d_cp(out, bundle["icc_u"], bundle["icc_v"], bundle["icc_w"], scale=1.0), 0.0, 1.0
+    )
+    if not cfg.quantize:
+        return rgb
+    return torch.round(rgb * 255.0).to(torch.uint8)
 
 
 def _print_tail(d: torch.Tensor, bundle: dict, cfg: RenderConfig) -> torch.Tensor:

@@ -3,10 +3,16 @@
 The port imports nothing of ``raw2film_tpu``; it keeps its own copy, under
 the same relative path, of every numpy module it needs. Each copy's source
 equals its original after the package-name rewrite (the C++ source of the
-native decoders is copied byte for byte), with two stated
-exceptions: ``config.py`` drops ``enable_persistent_jit_cache`` (it imports
-JAX), and the native loader builds its library into the port's ``_build/``
-directory. Then the copies are held to the originals by what they compute:
+native decoders is copied byte for byte), with stated exceptions, each
+listed by top-level definition, import or module docstring (``EXCEPT``):
+``config.py`` drops ``enable_persistent_jit_cache`` (it imports JAX), the
+native loader builds its library into the port's ``_build/`` directory,
+``utils/trace.py`` nests a torch profiler range, ``io/thumbnail.py``'s
+decode fallback copies its tensor to the host on the caller's device,
+``pipeline/batch.py`` drops its unused JAX imports,
+``parallel/distributed.py`` keeps the file-list split alone, the CLI takes
+``--device`` and the port's name, and the viewer builds its Processor on
+that device and reports torch from ``/api/about``. Then the copies are held to the originals by what they compute:
 the film stocks, the chain parameters, and ``read_raw`` of RAW fixtures.
 """
 
@@ -41,26 +47,47 @@ COPIES = [
     "io/nef.py", "io/pef.py", "io/sr2.py", "io/ljpeg.py", "io/lens_db.py",
     "io/lens_catalog.py", "utils/__init__.py", "utils/workers.py",
     "native/__init__.py", "native/r2f_native.cc",
+    "_version.py", "__main__.py", "io/icc.py", "io/export.py", "io/cube.py",
+    "io/lensfun_convert.py", "io/thumbnail.py", "pipeline/settings.py", "pipeline/batch.py",
+    "parallel/__init__.py", "parallel/distributed.py", "utils/trace.py", "cli.py", "viewer.py",
 ]
-# Top-level definitions a copy leaves out or replaces, per module.
+# Top-level definitions, imported modules and "__doc__" (the module
+# docstring) a copy leaves out or replaces, per module.
 EXCEPT = {
     "config.py": {"enable_persistent_jit_cache"},
     "native/__init__.py": {"_LIB_PATH", "_build"},
+    "utils/trace.py": {"__doc__", "torch.profiler", "_ENABLED", "_enabled", "stage_timer"},
+    "io/thumbnail.py": {"extract_thumb"},
+    "pipeline/batch.py": {"jax", "jax.numpy"},
+    "parallel/distributed.py": {
+        "__doc__", "numpy", "jax", "jax.numpy", "jax.sharding", "_NOT_PORTED", "init_process",
+        "distributed_batch_render",
+    },
+    "cli.py": {"__doc__", "build_parser", "main"},
+    "viewer.py": {"__doc__", "ViewerState", "_PAGE", "make_handler", "serve"},
 }
 
 
 def _without(src: str, names: set) -> str:
-    """``src`` without its top-level definitions and assignments of
-    ``names``, trailing blank space trimmed."""
+    """``src`` without its top-level definitions, assignments and imports
+    of ``names`` (and its docstring for "__doc__"), runs of blank lines
+    cut to one and trailing blank space trimmed."""
     lines = src.split("\n")
     drop = set()
-    for node in ast.parse(src).body:
+    for i, node in enumerate(ast.parse(src).body):
         targets = [getattr(node, "name", None)]
         if isinstance(node, ast.Assign):
             targets = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.Import):
+            targets = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            targets = [node.module]
+        elif i == 0 and isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant):
+            targets = ["__doc__"]
         if any(t in names for t in targets):
             drop.update(range(node.lineno - 1, node.end_lineno))
-    return "\n".join(line for i, line in enumerate(lines) if i not in drop).rstrip()
+    kept = "\n".join(line for i, line in enumerate(lines) if i not in drop)
+    return re.sub(r"\n{3,}", "\n\n", kept).rstrip()
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports and renders in a process where neither
 JAX nor the JAX package (``raw2film_tpu``) can be imported (the mosaic
 render, Processor.process() of a DNG on both paths, chroma NR, grain mode 3,
-a PreviewEngine frame), no file of it imports either, and its entry points
-run on the card unless asked for the CPU."""
+a PreviewEngine frame, ``python -m raw2film_tpu_torch --list-stocks`` and a
+``--device cpu`` export of the CLI), no file of it imports either, and its
+entry points run on the card unless asked for the CPU."""
 
 import os
 import pathlib
@@ -64,6 +65,21 @@ with tempfile.TemporaryDirectory() as d:
 assert half.shape == nr.shape == g3.shape == (24, 36, 3) and full.shape == (48, 72, 3)
 img, hist = frames[0]
 assert img.shape == (24, 36, 3) and hist.shape == (100, 256, 4), (img.shape, hist.shape)
+# the CLI: one export on the CPU
+import contextlib, io, runpy
+from raw2film_tpu_torch import cli
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "f.dng")
+    dng.write_dng(path, codes[:48, :72].astype(np.float64) * 4, white_level=60000)
+    outdir = os.path.join(d, "out")
+    assert cli.main([path, "-o", outdir, "--device", "cpu", "--ext", ".png"]) == 0
+    assert os.listdir(outdir) == ["f.png"]
+# python -m raw2film_tpu_torch --list-stocks
+buf = io.StringIO()
+sys.argv = ["raw2film_tpu_torch", "--list-stocks"]
+with contextlib.redirect_stdout(buf), contextlib.suppress(SystemExit):
+    runpy.run_module("raw2film_tpu_torch", run_name="__main__")
+assert "Kodak Portra 400" in buf.getvalue(), buf.getvalue()[:200]
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 assert not loaded & {"jax", "raw2film_tpu"}, loaded & {"jax", "raw2film_tpu"}
 print("rendered", tuple(out.shape), float(out.float().mean()))
@@ -104,12 +120,13 @@ def test_no_file_imports_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["render_chain_from_mosaic", "load_film_bundle", "Processor",
-                                   "generate_histogram"])
-def test_entry_points_default_to_cuda(entry):
+                                   "generate_histogram", "cli.main", "serve", "ViewerState"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device given, an entry point takes the first CUDA device; on
     a machine without one it raises rather than run on the CPU."""
     import raw2film_tpu_torch as r2f
     from raw2film_tpu_torch import data
+    from raw2film_tpu_torch import cli, viewer
     from raw2film_tpu_torch.ops.histogram import generate_histogram
 
     if torch.cuda.is_available():
@@ -121,6 +138,9 @@ def test_entry_points_default_to_cuda(entry):
         "load_film_bundle": lambda: r2f.load_film_bundle(h=8, w=8),
         "Processor": lambda: r2f.Processor(),
         "generate_histogram": lambda: generate_histogram(np.zeros((3, 4, 4), np.uint8)),
+        "cli.main": lambda: cli.main([str(tmp_path / "x.dng"), "-o", str(tmp_path / "out")]),
+        "serve": lambda: viewer.serve(str(tmp_path), port=0),
+        "ViewerState": lambda: viewer.ViewerState(str(tmp_path)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -103,3 +103,21 @@ def test_preview_engine_matches_jax(name, frame):
     np.testing.assert_array_equal(jh, jhist.generate_histogram(jimg.transpose(2, 0, 1)))
     if (diff == 0).all():
         np.testing.assert_array_equal(hist, jh)
+
+
+def test_preview_engine_logs_its_stages(frame):
+    """The engine times its render and histogram with ``utils/trace.py``'s
+    stage timer, as the JAX engine does: both land in the rolling stage log
+    (``stage_stats``) that the CLI's ``--trace`` reads, under the JAX
+    engine's names."""
+    from raw2film_tpu.utils import trace as jtrace
+    from raw2film_tpu_torch.utils import trace as ttrace
+
+    params = dict(STOCKS, seed=3, **PREVIEWS["simplified-30"])
+    for trace, engine_cls, proc in ((ttrace, PreviewEngine, Processor(device="cpu")),
+                                    (jtrace, jpreview.PreviewEngine, jproc.Processor())):
+        trace.reset_stats()
+        _run(engine_cls, proc, frame, **params)
+        stats = trace.stage_stats()
+        assert {k: v["count"] for k, v in stats.items()} == {"preview.render": 1, "preview.histogram": 1}
+        assert all(v["last_ms"] > 0 for v in stats.values())

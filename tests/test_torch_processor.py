@@ -216,10 +216,8 @@ def test_cache_follows_the_file(tmp_path):
 
 
 def test_refusals(port, dngs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         port.process_batch(dngs[:1], mesh=object(), **STOCKS)
-    with pytest.raises(NotImplementedError, match="ops/lut.py"):
-        port.process(dngs[0], icc_transform=object(), **STOCKS)
     # chroma NR renders on the staged path (the fused path declines it)
     assert port.process(dngs[0], chroma_nr=2, half_size=False, max_scale=None, **STOCKS).shape == (96, 144, 3)
     assert port._mosaic_cache[0] is None

@@ -4,8 +4,7 @@ on the CPU: same uint16 mosaic, same normalization, same grain seed, held to
 TPU form (Pallas kernels in interpret mode), since the JAX CPU form takes
 another halation formulation; so are the mixture tier's other branches (a
 frame whose H is not a multiple of 4, the /8 pyramid level). Also the
-branches the port once refused, and the one it still refuses, which must
-raise and never skip a stage."""
+branches the port once refused, which must render and never skip a stage."""
 
 import dataclasses
 
@@ -92,10 +91,10 @@ def test_crop_and_gain_match_jax():
     assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
 
 
-# (config overrides, mosaic shape). The first three once raised naming an
-# unported kernel: "halation" the mixture tier (228 px/mm, size 57) on a frame
-# whose H is not a multiple of 4 (K13), then grain without the MTF (K8) and
-# black-and-white grain (K9). "icc" still raises.
+# (config overrides, mosaic shape). Each once raised naming an unported
+# kernel or module: "halation" the mixture tier (228 px/mm, size 57) on a
+# frame whose H is not a multiple of 4 (K13), then grain without the MTF
+# (K8), black-and-white grain (K9) and the ICC output LUT (ops/lut.py).
 UNPORTED = {
     "halation": (dict(halation=True, scale=228.0), (34, 48)),
     "grain-without-mtf": (dict(sharpness=False), (32, 48)),
@@ -106,17 +105,20 @@ UNPORTED = {
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_branches_raise(name, monkeypatch):
-    """"icc" raises; the others render: the halation case through
-    halation_blur's resize tier (no stage skipped), the grain cases within
-    1 code of the JAX CPU form, whose grain is the same hash field."""
+    """Each renders: the halation case through halation_blur's resize tier
+    (no stage skipped), the grain cases and the ICC output LUT (a float
+    transform baked into CP factors, applied after K3's float encode and
+    before the rounding) within 1 code of the JAX CPU form, whose grain is
+    the same hash field."""
     jb, jcfg = _build(256, 384, halation=False)
     overrides, hw = UNPORTED[name]
+    if name == "icc":
+        from raw2film_tpu.io.icc import bake_output_cp
+
+        jb = dict(jb)
+        jb["icc_u"], jb["icc_v"], jb["icc_w"], _ = bake_output_cp(lambda x: np.clip(x, 0, 1) ** 1.35)
     cfg = dataclasses.replace(config_from_jax(jcfg), **overrides)
     args = (_codes(*hw), REC709_TO_XYZ, bundle_from_numpy(_numpy_bundle(jb)), cfg, 0)
-    if name == "icc":
-        with pytest.raises(NotImplementedError, match="ops/lut.py"):
-            render_chain_from_mosaic(*args, norm=NORM, device="cpu")
-        return
     if name == "halation":
         blurs = []
         orig = thal.halation_blur
