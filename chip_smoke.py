@@ -68,7 +68,19 @@
    serves the viewer on localhost: one parameter change, the frame within 1
    code of a plain-version engine's, JPEGs from /api/frame.jpg and
    /api/thumb/0, /api/about reporting CUDA;
-9. prints one JSON line of per-kernel results, then {"ok": true, "device":
+9. (n) renders a seeded 45 MP XYZ frame on virtual meshes of cuda:0
+   (``parallel/mesh.py``): the halo space path at space 2, 4 and 8 (8
+   multi-hop: the 1080-row halo exceeds a 684-row shard) and the batch
+   axis with two images, each with exact launch counts per shard, within 1
+   code of the same sharded render on the plain versions, and held to the
+   unsharded render within 1 code on 64 rows about each seam and on every
+   row more than one halo from the frame's edges (the edge bands
+   reported); a profiled space-2 render copying nothing host-to-device;
+   ms per sharded frame and peak memory beside the unsharded frame; then
+   ``process_batch`` over a 2 x 2 mesh on the two DNGs of (l), and two
+   processes of this script (``--gloo-worker``) in a gloo group, both on
+   cuda:0, each output equal to this process's render;
+10. prints one JSON line of per-kernel results, then {"ok": true, "device":
    {...}} as its last line.
 
 Any failed check ends the script with a traceback and a non-zero exit.
@@ -1708,6 +1720,253 @@ def viewer_phase(device, folder: str, card: str) -> tuple[dict, dict]:
     return launches, {"frame_ms": frame_ms}
 
 
+# ------------------------------------------------------------ mesh (n)
+
+# Launches of one shard's render of camera XYZ at the benchmark config: the
+# 45 MP render's kernels but the demosaic. Every shard frame (4896, 3528 and
+# 2844 rows at space 2, 4 and 8) is a multiple of 4, so halation stays on
+# the /4 mixture tier; the burn's small map (24-43 cells high) is blurred on
+# K4 and upsampled in K3 with its shard's row matrix.
+SHARD_LAUNCHES = counts(pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1, halation=1,
+                        print_encode=1)
+# A shard of a half-size (CLI default) frame: the SVD glow tier and the MTF
+# + grain on K2, the burn's blur on K4, K3.
+HALF_SHARD_LAUNCHES = counts(sep_rank=2, sep_rank_narrow=1, print_encode=1)
+HALF_DECODE = counts(half_size=1)  # per image, before it is sharded
+SPACES = (2, 4, 8)
+SEAM_BAND = 64  # rows gated on each side of a seam
+
+
+def mesh_xyz(device, seed: int) -> torch.Tensor:
+    """A seeded 45 MP camera XYZ frame on the device: the seeded mosaic
+    demosaiced (K1), clipped, mixed by the Rec709-to-XYZ matrix."""
+    rgb = dm.demosaic_mhc(mosaic_codes(H, W, seed, device), "RGGB", norm=NORM).clamp_(0.0, 1.0)
+    m = torch.tensor(ref_data.REC709_TO_XYZ, dtype=torch.float32, device=device)
+    return torch.einsum("ij,jhw->ihw", m, rgb).contiguous()
+
+
+def code_diff(a, b):
+    """|a - b| of two uint8 images (tensors or arrays) as int16."""
+    if isinstance(a, np.ndarray):
+        return np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return (a.to(torch.int16) - b.to(torch.int16)).abs()
+
+
+def seam_gates(label: str, d: torch.Tensor, space: int, halo: int) -> dict:
+    """Code differences of a sharded (3, h, w) frame against the unsharded
+    one: gated within 1 code on SEAM_BAND rows about each seam and on every
+    row more than one halo from the frame's top and bottom; the edge bands
+    (the frame's first and last halo rows) are reported, not gated, since
+    the frame edges differ by design (raw2film_tpu/parallel/mesh.py:113-118:
+    the halo path fills the rows beyond the frame once, the unsharded render
+    reflects at every stage)."""
+    h = d.shape[-2]
+    h_loc = h // space
+    rows = d.amax(dim=(0, 2)).cpu().numpy()
+    seams = [int(rows[max(s * h_loc - SEAM_BAND, 0) : s * h_loc + SEAM_BAND].max()) for s in range(1, space)]
+    interior = int(rows[halo : h - halo].max()) if h > 2 * halo else 0
+    edge = torch.cat([d[:, :halo], d[:, h - halo :]], dim=1)
+    res = {
+        "seam_max": seams, "interior_max": interior, "edge_max": int(edge.max()),
+        "edge_equal_share": float((edge == 0).to(torch.float64).mean()),
+        "equal_share": float((d == 0).to(torch.float64).mean()),
+    }
+    print(f"{label} vs unsharded: max code {seams} on +-{SEAM_BAND} rows about each seam, {interior} more "
+          f"than one halo ({halo} rows) from the edges; edge bands (not gated) max {res['edge_max']}, "
+          f"{res['edge_equal_share']!r} equal; all rows {res['equal_share']!r} equal")
+    if max(seams + [interior]) > 1:
+        raise AssertionError(f"{label}: {max(seams + [interior])} codes from the unsharded render")
+    return res
+
+
+def checked_launches(label: str, fn, want: dict):
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(kb.launches)
+    print(f"{label}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    return out, launches
+
+
+def mesh_phase(device, bundle, cfg, paths: list, card: str) -> tuple[dict, dict]:
+    """(n): the halo space path and the batch axis on virtual meshes of
+    cuda:0 at 45 MP (space 2, 4 and 8, the last multi-hop; batch 2), each
+    render with exact launch counts, within 1 code of the same sharded
+    render on the plain versions and held to the unsharded render at the
+    seams and interior (seam_gates); a profiled space-2 render copying
+    nothing host-to-device; ms per frame and peak memory at each space
+    count beside the unsharded frame; process_batch over a 2 x 2 mesh on
+    the two DNGs; two processes in a gloo group, both on cuda:0, equal to
+    one process."""
+    from raw2film_tpu_torch.parallel.mesh import halo_rows, make_mesh, sharded_batch_render, space_halo_rows
+
+    total = counts()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    xyz = mesh_xyz(device, SEED + 10)
+    frame = xyz[None]
+    halo = space_halo_rows(cfg, H, W)
+    single, launches = checked_launches("mesh (n) unsharded render", lambda: render_chain(xyz, bundle, cfg, SEED),
+                                        SHARD_LAUNCHES)
+    add(launches)
+    ms_single = cuda_ms(lambda: render_chain(xyz, bundle, cfg, SEED), 5)
+    torch.cuda.reset_peak_memory_stats()
+    render_chain(xyz, bundle, cfg, SEED)
+    peak_single = torch.cuda.max_memory_allocated()
+    result = {"halo": halo, "unsharded": {"ms": statistics.median(ms_single), "all_ms": ms_single,
+                                           "peak_bytes": peak_single}}
+    print(f"mesh (n) unsharded 45 MP render from XYZ on {card}: median {statistics.median(ms_single)!r} ms, "
+          f"all {ms_single!r}; peak {peak_single} bytes; halo {halo} rows")
+    render2 = None
+    for space in SPACES:
+        label = f"mesh (n) space {space}"
+        render = sharded_batch_render(make_mesh(devices=[device] * space, batch=1, space=space), cfg)
+        out, launches = checked_launches(label, lambda: render(frame, bundle, [SEED]),
+                                         {k: space * v for k, v in SHARD_LAUNCHES.items()})
+        add(launches)
+        ref = plain(render, frame, bundle, [SEED])
+        worst = int(code_diff(out, ref).max())
+        print(f"{label} vs the plain versions on the card: max {worst} code")
+        gates = seam_gates(label, code_diff(out[0], single), space, halo)
+        if worst > 1:
+            raise AssertionError(f"{label}: {worst} codes from the plain versions")
+        del out, ref
+        ms = cuda_ms(lambda: render(frame, bundle, [SEED]), 5)
+        torch.cuda.reset_peak_memory_stats()
+        render(frame, bundle, [SEED])
+        peak = torch.cuda.max_memory_allocated()
+        shard_rows = H // space + 2 * halo
+        print(f"{label} on {card}: median {statistics.median(ms)!r} ms per 45 MP frame ({space} shards of "
+              f"{shard_rows} rows), unsharded {statistics.median(ms_single)!r} ms; all {ms!r}; peak {peak} bytes")
+        result[f"space{space}"] = {"ms": statistics.median(ms), "all_ms": ms, "peak_bytes": peak,
+                                   "shard_rows": shard_rows, "max_code_vs_plain": worst, **gates}
+        if space == 2:
+            render2 = render
+    by_kernel = profile(lambda: render2(frame, bundle, [SEED]), "mesh (n) space-2 render", n=2)
+    result["space2"]["device_ms"] = sum(by_kernel.values())
+    rows = halo_rows(H, H // 2 - halo, H + halo, device)  # the bottom shard's rows at space 2
+    result["space2"]["gather_ms"] = statistics.median(cuda_ms(lambda: xyz.index_select(1, rows), 5))
+    print(f"mesh (n) space 2: one shard's row gather {result['space2']['gather_ms']!r} ms")
+    torch.cuda.empty_cache()
+
+    # the batch axis: two images on two (virtual) devices
+    xyz2 = torch.stack([xyz, mesh_xyz(device, SEED + 11)])
+    render = sharded_batch_render(make_mesh(devices=[device] * 2), cfg)
+    out, launches = checked_launches("mesh (n) batch 2", lambda: render(xyz2, bundle, [SEED, SEED + 1]),
+                                     {k: 2 * v for k, v in SHARD_LAUNCHES.items()})
+    add(launches)
+    ref = plain(render, xyz2, bundle, [SEED, SEED + 1])
+    worst = int(code_diff(out, ref).max())
+    each = [int(code_diff(out[i], render_chain(xyz2[i], bundle, cfg, SEED + i)).max()) for i in range(2)]
+    print(f"mesh (n) batch 2: max {worst} code from the plain versions; {each} codes from each unsharded render")
+    if worst > 1 or max(each) > 1:
+        raise AssertionError(f"mesh (n) batch 2: {worst} codes from plain, {each} from unsharded")
+    ms = cuda_ms(lambda: render(xyz2, bundle, [SEED, SEED + 1]), 3)
+    result["batch2"] = {"ms_per_frame": statistics.median(ms) / 2, "all_ms": ms, "max_code_vs_plain": worst,
+                        "max_code_vs_unsharded": each}
+    print(f"mesh (n) batch 2 on {card}: median {statistics.median(ms) / 2!r} ms per frame")
+    del xyz2, out, ref, single, render, render2
+    torch.cuda.empty_cache()
+
+    # process_batch over a 2 x 2 mesh on the two DNGs, at the CLI defaults
+    mesh22 = make_mesh(devices=[device] * 4, space=2)
+    proc = Processor(device=device)
+    outs, launches = checked_launches(
+        "mesh (n) process_batch 2 x 2", lambda: proc.process_batch(paths, mesh=mesh22, **SETTINGS),
+        {k: len(paths) * HALF_DECODE[k] + 4 * v for k, v in HALF_SHARD_LAUNCHES.items()},
+    )
+    add(launches)
+    refs = plain(Processor(device=device).process_batch, paths, mesh=mesh22, **SETTINGS)
+    flat = proc.process_batch(paths, **SETTINGS)
+    neg, prt = tproc._resolve_stock(STOCKS["negative_film"]), tproc._resolve_stock(STOCKS["print_film"])
+    merged = dict(tproc._MERGED_DEFAULTS, grain=2, sharpness=True, highlight_burn=0.3)
+    cfg_half = build_render_config(neg, prt, "print", (W // 2) / 36.0, merged)
+    halo_half = space_halo_rows(cfg_half, H // 2, W // 2)
+    pb = []
+    for i, (o, r, f) in enumerate(zip(outs, refs, flat)):
+        worst = int(code_diff(o, r).max())
+        print(f"mesh (n) process_batch image {i}: {o.shape}, max {worst} code from the plain versions")
+        if o.shape != HALF or worst > 1:
+            raise AssertionError(f"mesh (n) process_batch image {i}: {o.shape}, {worst} codes from plain")
+        d = torch.as_tensor(code_diff(o, f).transpose(2, 0, 1))
+        pb.append(seam_gates(f"mesh (n) process_batch image {i}", d, 2, halo_half))
+    result["process_batch"] = {"halo": halo_half, "images": pb}
+
+    result["gloo"] = gloo_phase(device, bundle, cfg, card)
+    return total, result
+
+
+def gloo_phase(device, bundle, cfg, card: str) -> dict:
+    """Two processes of this script (--gloo-worker) in a gloo group on a
+    free localhost port, both on cuda:0, each rendering its image of a
+    global batch of two through distributed_batch_render: each output's
+    SHA-256 equal to this process's render of the same image."""
+    import hashlib
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-worker", str(pid), str(port)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in (0, 1)
+    ]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = []
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo worker {pid}: exit code {p.returncode}\n{log[-3000:]}")
+        got.append(json.loads([line for line in log.splitlines() if line.startswith('{"pid"')][-1]))
+    want = [hashlib.sha256(render_chain(mesh_xyz(device, SEED + 20 + pid), bundle, cfg, SEED + pid)
+                           .cpu().numpy().tobytes()).hexdigest() for pid in (0, 1)]
+    print(f"mesh (n) gloo on {card}: two processes in {wall!r} ms (start-up included); workers {got}")
+    if [g["sha256"] for g in got] != want:
+        raise AssertionError(f"mesh (n) gloo: the processes' outputs differ from one process's: {got} vs {want}")
+    return {"wall_ms": wall, "workers": got}
+
+
+def gloo_worker(pid: int, port: str) -> int:
+    """One process of gloo_phase: join the group, render image ``pid`` of
+    the global batch over a one-device mesh, print its SHA-256."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from raw2film_tpu_torch.parallel.distributed import distributed_batch_render, init_process
+    from raw2film_tpu_torch.parallel.mesh import make_mesh
+
+    device = require_cuda()
+    disable_tf32(verbose=False)
+    bundle, cfg = load_film_bundle(h=H, w=W, device=device, halation=True, grain=2, sharpness=True,
+                                   highlight_burn=0.3)
+    xyz = mesh_xyz(device, SEED + 20 + pid)[None]
+    init_process(f"127.0.0.1:{port}", 2, pid)
+    try:
+        kb.reset_launches()
+        out = distributed_batch_render(make_mesh(devices=[device]), cfg, xyz, bundle, [SEED + pid])
+        launches = {k: v for k, v in kb.launches.items() if v}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"pid": pid, "shape": list(out.shape), "launches": launches,
+                      "sha256": hashlib.sha256(out[0].tobytes()).hexdigest()}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1794,6 +2053,10 @@ def main() -> int:
         add(phase_launches)
         phase_launches, viewer_timing = viewer_phase(device, roll, card)
         add(phase_launches)
+        torch.cuda.empty_cache()
+        phase_launches, mesh_timing = mesh_phase(device, bundle, cfg, paths, card)
+        add(phase_launches)
+        torch.cuda.empty_cache()
     phase_launches, sep_conv_timing = sep_conv_phase(device, cfg, card)
     add(phase_launches)
     for name, n in total.items():
@@ -1817,7 +2080,7 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels, "main_path": timing, "halation_off": timing_off,
         "process": process_timing, "preview": previews, "sep_conv_rank": sep_conv_timing,
-        "icc": icc_timing, "cli": cli_timing, "viewer": viewer_timing, "card": card,
+        "icc": icc_timing, "cli": cli_timing, "viewer": viewer_timing, "mesh": mesh_timing, "card": card,
     }))
     print(card_line())
     print(json.dumps({
@@ -1832,4 +2095,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-worker"]:
+        sys.exit(gloo_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

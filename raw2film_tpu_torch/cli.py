@@ -4,10 +4,10 @@
 The counterpart of ``raw2film_tpu/cli.py``, with the same flags, folder
 sidecar settings (raw2film_settings.json) and merge order. It renders on
 ``--device``: by default the first CUDA device, and it raises without one;
-``--device cpu`` runs the kernels' plain PyTorch versions. ``--coordinator``
-(joining a multi-process group) is not ported yet (ROADMAP.md, queue 1
-item 7); ``--num-processes``/``--process-id`` slice the file list.
-"""
+``--device cpu`` runs the kernels' plain PyTorch versions.
+``--num-processes``/``--process-id`` slice the file list, and
+``--coordinator`` first joins the processes' gloo group
+(``parallel/distributed.py::init_process``)."""
 
 from __future__ import annotations
 
@@ -107,8 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--coordinator", default=None,
-        help="host:port of a process-group coordinator (not ported yet:"
-        " ROADMAP.md, queue 1 item 7); omit for independent hosts",
+        help="host:port of the process group's coordinator (rank 0): every"
+        " process joins a torch.distributed gloo group before rendering;"
+        " omit for independent hosts",
     )
     p.add_argument("--trace", action="store_true", help="print per-stage timings")
     p.add_argument(
@@ -327,8 +328,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.num_processes > 1 or args.coordinator:
         # Fleet export (docs/scaling.md Tier 2): slice the file list per
-        # process — RAW bytes never cross hosts. Joining a coordinator
-        # raises: not ported yet.
+        # process — RAW bytes never cross hosts; join the process group
+        # when a coordinator is given.
         from raw2film_tpu_torch.parallel.distributed import init_process, my_file_slice
 
         if args.coordinator:

@@ -378,7 +378,9 @@ cudaError_t launch(const float* img, float* out, int C, int H, int W, const Taps
     const dim3 grid((W + W_TW - 1) / W_TW, (H + W_TH * W_T - 1) / (W_TH * W_T), C);
     conv_w_kernel<VEC, BUF><<<grid, dim3(W_TX, W_TY), 0, s>>>(img, out, H, W, tp, buf);
   } else {
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    // set on every launch: the attribute belongs to the current device,
+    // and a process may launch on several
+    const cudaError_t attr = cudaFuncSetAttribute(
         conv_h_kernel<VEC, BUF>, cudaFuncAttributeMaxDynamicSharedMemorySize, H_SMEM);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((W + H_SW - 1) / H_SW, (H + H_TR * H_T - 1) / (H_TR * H_T), C);

@@ -74,9 +74,11 @@ def _upload(data: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(data, device=device)
 
 
-def decode_raw(raw, half_size: bool = False, device=None) -> torch.Tensor:
+def decode_raw(raw, half_size: bool = False, demosaic: str = "mhc", device=None) -> torch.Tensor:
     """RawImage -> (3, H, W) float32 camera-linear XYZ in [0, 1] on
-    ``device``, uprighted per the container's Orientation tag."""
+    ``device``, uprighted per the container's Orientation tag. A full-size
+    Bayer decode is Malvar-He-Cutler (``demosaic="mhc"``, K1) or bilinear
+    (``"bilinear"``, its stencils on K2)."""
     data = _upload(raw.data, device)
     norm = (raw.black_level, 1.0 / max(raw.white_level - raw.black_level, 1.0))
     if raw.cfa_pattern is not None:
@@ -89,6 +91,8 @@ def decode_raw(raw, half_size: bool = False, device=None) -> torch.Tensor:
                 rgb = rgb[:, : h2 * 2, : w2 * 2].reshape(3, h2, 2, w2, 2).mean(dim=(2, 4))
         elif half_size:
             rgb = dm.half_size_decode(data, raw.cfa_pattern, norm)
+        elif demosaic == "bilinear":
+            rgb = dm.demosaic_bilinear(dm.normalize(data, norm), raw.cfa_pattern)
         else:
             rgb = dm.demosaic_mhc(data, raw.cfa_pattern, norm=norm)
         rgb = torch.clamp(rgb, 0.0, 1.0)

@@ -1,5 +1,5 @@
 """Demosaic: Malvar-He-Cutler 5x5 with the input transform fused, the
-half-size decode, and the masked X-Trans decode.
+half-size decode, the bilinear decode and the masked X-Trans decode.
 
 The counterpart of ``raw2film_tpu/ops/demosaic.py``:
 
@@ -10,8 +10,9 @@ The counterpart of ``raw2film_tpu/ops/demosaic.py``:
   grouped pair sums) in plain PyTorch;
 - :func:`half_size_decode` launches K11 (``csrc/demosaic.cu``, the port of
   ``pallas_pyramid.half_size_decode_pallas``), or :func:`half_size_plain`;
-- :func:`demosaic_masked`, the X-Trans decode, runs its depthwise convs as
-  SVD ranks on K2, as ``depthwise_conv2d`` does on the TPU.
+- :func:`demosaic_bilinear` and :func:`demosaic_masked`, the X-Trans
+  decode, run their depthwise convs as SVD ranks on K2, as
+  ``depthwise_conv2d`` does on the TPU.
 """
 
 from __future__ import annotations
@@ -180,6 +181,34 @@ def half_size_decode(bayer: torch.Tensor, pattern: str = "RGGB", norm=None) -> t
     kb.check(err, "r2f_half_size")
     kb.launches["half_size"] += 1
     return out
+
+
+# ------------------------------------------------------------ bilinear
+
+# The bilinear stencils (x 1/4): green at red and blue sites from its four
+# neighbours; red (blue) from the red (blue) plane, zero elsewhere.
+_BILINEAR_G = np.array([[0, 1, 0], [1, 4, 1], [0, 1, 0]], np.float32) / 4.0
+_BILINEAR_RB = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], np.float32) / 4.0
+
+
+def demosaic_bilinear(bayer: torch.Tensor, pattern: str = "RGGB") -> torch.Tensor:
+    """Cheap bilinear demosaic: (H, W) float32 -> (3, H, W), each measured
+    value kept at its own site. Both 3x3 stencils run as their SVD ranks on
+    K2 (K4 on small frames), as ``depthwise_conv2d`` does on the TPU: green
+    in one launch, red and blue as the two planes of another."""
+    ry, rx = _phase(pattern)
+    h, w = bayer.shape
+    yy = (torch.arange(h, device=bayer.device) & 1)[:, None]
+    xx = (torch.arange(w, device=bayer.device) & 1)[None, :]
+    r_mask = (yy == ry) & (xx == rx)
+    b_mask = (yy == 1 - ry) & (xx == 1 - rx)
+    g = torch.where(r_mask | b_mask, _depthwise(bayer[None], _BILINEAR_G)[0], bayer)
+    zero = torch.zeros((), dtype=bayer.dtype, device=bayer.device)
+    planes = torch.stack([torch.where(r_mask, bayer, zero), torch.where(b_mask, bayer, zero)])
+    rb = _depthwise(planes, _BILINEAR_RB)
+    r = torch.where(r_mask, bayer, rb[0])
+    b = torch.where(b_mask, bayer, rb[1])
+    return torch.stack([r, g, b])
 
 
 # ------------------------------------------------------------ X-Trans

@@ -8,6 +8,8 @@ the JAX package to a few ulps. The CUDA kernels use the same forms
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -19,6 +21,27 @@ LOG2_E = float(np.float32(np.log2(np.e)))
 LN_2 = float(np.float32(np.log(2.0)))
 
 
+_log2_lock = threading.Lock()
+_log2_ready = False
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """``torch.log2``. On the CPU it is MKL VML's vmsLog2, which sets up its
+    code path at its first call in a process; a first call on a tensor above
+    ATen's 2048-element grain runs on several OpenMP threads at once, and
+    then whole per-thread chunks have come back with errors of up to 2.4e-5
+    (absolute, in log2), about 800 ulp of a log10 near 0 (see
+    tests/test_torch_fastmath.py). So the first CPU call of the process is
+    made here, on a few elements, which run on this thread alone."""
+    global _log2_ready
+    if not _log2_ready and x.device.type == "cpu":
+        with _log2_lock:
+            if not _log2_ready:
+                torch.log2(torch.ones(16))
+                _log2_ready = True
+    return torch.log2(x)
+
+
 def pow10(x: torch.Tensor) -> torch.Tensor:
     """10**x via exp2."""
     return torch.exp2(x * LOG2_10)
@@ -26,7 +49,7 @@ def pow10(x: torch.Tensor) -> torch.Tensor:
 
 def log10(x: torch.Tensor) -> torch.Tensor:
     """log10(x) via log2."""
-    return torch.log2(x) * LOG10_2
+    return _log2(x) * LOG10_2
 
 
 def expe(x: torch.Tensor) -> torch.Tensor:
@@ -47,13 +70,13 @@ def softplus(u: torch.Tensor, w) -> torch.Tensor:
     t = u * inv
     return w * (
         torch.clamp(t, min=0.0)
-        + LN_2 * torch.log2(1.0 + torch.exp2(-torch.abs(t) * LOG2_E))
+        + LN_2 * _log2(1.0 + torch.exp2(-torch.abs(t) * LOG2_E))
     )
 
 
 def powc(x: torch.Tensor, p: float) -> torch.Tensor:
     """x**p for a constant exponent; x is clamped away from 0."""
-    return torch.exp2(torch.log2(torch.clamp(x, min=1e-30)) * float(np.float32(p)))
+    return torch.exp2(_log2(torch.clamp(x, min=1e-30)) * float(np.float32(p)))
 
 
 _LOGC3 = tuple(
@@ -87,7 +110,7 @@ def encode(x: torch.Tensor, key: str) -> torch.Tensor:
         cut, a, b, c, d, e, f = _LOGC3
         return torch.where(
             x > cut,
-            c * LOG10_2 * torch.log2(a * x + b) + d,
+            c * LOG10_2 * _log2(a * x + b) + d,
             e * x + f,
         )
     raise ValueError(f"unknown gamma_func {key!r}")

@@ -23,9 +23,12 @@ An ICC transform (``icc_transform``) is baked into a CP-factored output
 LUT on the host (``io/icc.py::bake_output_cp``) and uploaded once per
 transform object; the render applies it before the 8-bit rounding.
 
+``process_batch(mesh=...)`` renders on a device mesh
+(``parallel/mesh.py``): every image staged, grouped by shape, sharded over
+the mesh's batch and space axes.
+
 Not ported here: the TPU's scoped-VMEM retry ladder and the JIT cache (the
-port compiles nothing per shape), and a device mesh for ``process_batch``
-(ROADMAP.md, queue 1 item 7), which raises NotImplementedError.
+port compiles nothing per shape).
 """
 
 from __future__ import annotations
@@ -551,14 +554,18 @@ class Processor:
 
     def process_batch(self, srcs: list, negative_film, mesh=None, seed: int = 0,
                       **params) -> list[np.ndarray]:
-        """Render many images, one at a time on this Processor's device.
-        Image i takes the grain key fold_in(PRNGKey(seed), i), as in the JAX
-        Processor, so image 0 equals ``process(srcs[0], seed=seed)``. An
-        ICC transform is baked and attached once for the batch."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "process_batch over a device mesh is not ported yet (ROADMAP.md, queue 1 item 7)"
-            )
+        """Render many images. Image i takes the grain key
+        fold_in(PRNGKey(seed), i), as in the JAX Processor, so image 0
+        equals ``process(srcs[0], seed=seed)``. An ICC transform is baked
+        and attached once for the batch.
+
+        Without a mesh the images render one at a time on this Processor's
+        device. With a mesh (``parallel/mesh.py::make_mesh``) every image
+        takes the staged path (decoded on this device, then held on the
+        host); images of one shape are stacked in groups of at least
+        ``mesh.shape["batch"]`` (a short group padded by repeating its
+        images, the padding dropped after the render) and rendered by
+        ``sharded_batch_render``; finishing stays per image."""
         negative_film = _resolve_stock(negative_film)
         print_film = _resolve_stock(params.pop("print_film", None))
         load_kw = {k: params[k] for k in _LOAD_KEYS if k in params}
@@ -573,10 +580,50 @@ class Processor:
                      (("canvas_mode", "No"), ("canvas_scale", 1.0), ("canvas_ratio", 1.0))}
         base = prng_key(seed)
         icc = self._icc_arrays(params.get("icc_transform"))
-        return [
-            self._render(
-                src, negative_film, print_film, load_kw, merged, fold_in(base, idx), False,
-                bool(params.get("fused_decode", True)), icc, finish_kw,
-            )
-            for idx, src in enumerate(srcs)
-        ]
+        if mesh is None:
+            return [
+                self._render(
+                    src, negative_film, print_film, load_kw, merged, fold_in(base, idx), False,
+                    bool(params.get("fused_decode", True)), icc, finish_kw,
+                )
+                for idx, src in enumerate(srcs)
+            ]
+        return self._render_on_mesh(
+            mesh, srcs, negative_film, print_film, load_kw, merged, base, icc, finish_kw
+        )
+
+    def _render_on_mesh(self, mesh, srcs, negative_film, print_film, load_kw, merged, base,
+                        icc, finish_kw) -> list[np.ndarray]:
+        """process_batch over a mesh: decode and bucket by shape, render each
+        group with ``sharded_batch_render``, finish per image."""
+        from raw2film_tpu_torch.parallel.mesh import sharded_batch_render
+
+        buckets: dict = {}
+        for idx, src in enumerate(srcs):
+            xyz, orig_resolution, meta = self.load_image(src, cache=False, **load_kw)
+            self.last_metadata = dict(meta or {})
+            # held on the host, as the JAX Processor holds its decoded
+            # arrays, so a long roll does not fill the card
+            buckets.setdefault(tuple(xyz.shape), []).append((idx, xyz.cpu(), orig_resolution))
+        bundle, prt_mode = self.load_film_bundle(negative_film, print_film, merged)
+        fw, fh = load_kw["frame_width"], load_kw["frame_height"]
+        per = mesh.shape["batch"]
+        results: list = [None] * len(srcs)
+        for shape, items in buckets.items():
+            scale = max(shape[-2:]) / max(fw, fh)
+            cfg = build_render_config(negative_film, print_film, prt_mode, scale, merged)
+            bundle_c, cfg = self._attach_icc(bundle, cfg, icc)
+            render = sharded_batch_render(mesh, cfg)
+            # groups of at most ~2 GB of float32 input, and at least one
+            # image per batch row
+            group = max(int(2e9 // (int(np.prod(shape)) * 4)), 1, per)
+            for g0 in range(0, len(items), group):
+                part = items[g0 : g0 + group]
+                n = len(part)
+                tiled = [part[k % n] for k in range(n + (-n) % per)]
+                batch = torch.stack([x for _, x, _ in tiled]).to(self.device)
+                seeds = [grain_seed(fold_in(base, idx)) for idx, _, _ in tiled]
+                out = render(batch, bundle_c, seeds)[:n].cpu().numpy()
+                for (idx, _, orig_resolution), img in zip(part, out):
+                    results[idx] = self._finish(img, orig_resolution=orig_resolution, **finish_kw)
+        return results

@@ -272,12 +272,19 @@ def render_chain(
     cfg: RenderConfig,
     seed: int,
     grain_row_offset: int = 0,
+    burn_ref_hw: tuple | None = None,
     input_is_exposure: bool = False,
 ) -> torch.Tensor:
     """(3, H, W) float32 camera XYZ (or, with ``input_is_exposure``, the
     chain's exposure image) -> (3, H, W) uint8 encoded output. With
     ``cfg.icc`` the bundle carries the ICC output LUT's CP factors
-    (``icc_u``, ``icc_v``, ``icc_w``), applied before the rounding."""
+    (``icc_u``, ``icc_v``, ``icc_w``), applied before the rounding.
+
+    A row shard of a larger frame (``parallel/mesh.py``) passes the frame
+    row of its row 0 as ``grain_row_offset``, so its grain hash rows are the
+    frame's, and the frame's (H, W) as ``burn_ref_hw``, so the burn takes
+    the frame's factor and aligns its cells to the frame's grid at that
+    same row offset."""
     if input_is_exposure:
         ep = xyz.contiguous()  # a cropped exposure image is a strided view
     else:
@@ -337,9 +344,15 @@ def render_chain(
 
     burn_args = None
     if cfg.highlight_burn:
-        burn_args = burn_ops.burn_smallmap(d, bundle["d_ref_green"], cfg.burn_scale)
+        burn_row = grain_row_offset if burn_ref_hw is not None else None
+        burn_args = burn_ops.burn_smallmap(
+            d, bundle["d_ref_green"], cfg.burn_scale, ref_hw=burn_ref_hw, row_offset=burn_row
+        )
         if burn_args is None:
-            d = burn_ops.burn(d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale)
+            d = burn_ops.burn(
+                d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale,
+                ref_hw=burn_ref_hw, row_offset=burn_row,
+            )
     out = pe.print_encode(
         d.contiguous(), bundle["pvec_host"], cfg.print_mode, cfg.shadow_comp,
         cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize and not cfg.icc, burn=burn_args,

@@ -2,7 +2,7 @@
 cases of tests/test_batch_cli.py on ``raw2film_tpu_torch`` (the CLI with
 ``--device cpu``), its PNG exports held within 1 code of the JAX CLI's on
 the same fixture, and what the port's CLI does differently: ``--device``,
-``--version``, ``--coordinator`` (not ported: raises), the ICC flags
+``--version``, ``--coordinator`` (two processes in a gloo group), the ICC flags
 (baked into the render, within 1 code of the JAX CLI) and ``--trace``."""
 
 import json
@@ -359,10 +359,40 @@ class TestPortFlags:
         assert capsys.readouterr().out.strip() == f"raw2film-tpu-torch {__version__}"
 
     def test_coordinator_is_not_ported(self, tmp_path):
-        dng = tmp_path / "t.dng"
-        _write_fixture_dng(dng)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            main([str(dng), "--coordinator", "localhost:1234", "--num-processes", "2"])
+        """``--coordinator`` joins the processes' gloo group (it was refused
+        until ``parallel/distributed.py`` was ported; the test keeps its
+        name): two CLI processes on a free localhost port, each exporting its
+        slice of the two files, equal to one process's export."""
+        import socket
+        import subprocess
+        import sys
+
+        for i, name in enumerate(("a.dng", "b.dng")):
+            _write_fixture_dng(tmp_path / name, seed=i)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        args = [str(tmp_path / "a.dng"), str(tmp_path / "b.dng"), "-o", str(tmp_path / "fleet"),
+                "--grain", "0", "--device", "cpu", "--ext", ".png"]
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "raw2film_tpu_torch", *args, "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", "2", "--process-id", str(pid)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=root,
+            )
+            for pid in (0, 1)
+        ]
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, log[-2000:]
+            assert f"fleet process {pid}/2: 1 files" in log
+        assert main([*args[:2], "-o", str(tmp_path / "one"), "--grain", "0", "--ext", ".png"]) == 0
+        assert sorted(os.listdir(tmp_path / "fleet")) == sorted(os.listdir(tmp_path / "one")) == ["a.png", "b.png"]
+        for name in ("a.png", "b.png"):
+            with Image.open(tmp_path / "fleet" / name) as f, Image.open(tmp_path / "one" / name) as o:
+                np.testing.assert_array_equal(np.asarray(f), np.asarray(o))
 
     def test_device_is_handed_to_the_processor(self, tmp_path, monkeypatch):
         from raw2film_tpu_torch.pipeline import processor as tproc

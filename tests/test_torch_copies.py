@@ -10,7 +10,8 @@ native loader builds its library into the port's ``_build/`` directory,
 ``utils/trace.py`` nests a torch profiler range, ``io/thumbnail.py``'s
 decode fallback copies its tensor to the host on the caller's device,
 ``pipeline/batch.py`` drops its unused JAX imports,
-``parallel/distributed.py`` keeps the file-list split alone, the CLI takes
+``parallel/distributed.py`` joins a torch.distributed group and renders
+over its own mesh (its file-list split is the copy), the CLI takes
 ``--device`` and the port's name, and the viewer builds its Processor on
 that device and reports torch from ``/api/about``. Then the copies are held to the originals by what they compute:
 the film stocks, the chain parameters, and ``read_raw`` of RAW fixtures.
@@ -60,8 +61,8 @@ EXCEPT = {
     "io/thumbnail.py": {"extract_thumb"},
     "pipeline/batch.py": {"jax", "jax.numpy"},
     "parallel/distributed.py": {
-        "__doc__", "numpy", "jax", "jax.numpy", "jax.sharding", "_NOT_PORTED", "init_process",
-        "distributed_batch_render",
+        "__doc__", "numpy", "jax", "jax.numpy", "jax.sharding", "torch", "torch.distributed",
+        "init_process", "distributed_batch_render",
     },
     "cli.py": {"__doc__", "build_parser", "main"},
     "viewer.py": {"__doc__", "ViewerState", "_PAGE", "make_handler", "serve"},

@@ -228,3 +228,19 @@ def test_masked_demosaic_matches_jax():
     ref = np.asarray(jdm.demosaic_masked(jnp.asarray(x), XTRANS_CANONICAL, 6, 6))
     got = tdm.demosaic_masked(torch.from_numpy(x), XTRANS_CANONICAL, 6, 6).numpy()
     assert np.abs(got - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("pattern", list(tdm.PATTERNS))
+@pytest.mark.parametrize("hw", [(48, 150), (37, 67), (5, 4)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_bilinear_matches_jax(pattern, hw):
+    """``demosaic_bilinear``: its two 3x3 stencils as SVD ranks (K2's plain
+    version) against the JAX package's shift-and-add CPU form, within 1e-5
+    (the rank split reorders a few float32 sums of unit-range values)."""
+    x = np.random.default_rng(13).uniform(0.0, 1.0, hw).astype(np.float32)
+    ref = np.asarray(jdm.demosaic_bilinear(jnp.asarray(x), pattern))
+    got = tdm.demosaic_bilinear(torch.from_numpy(x), pattern)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+    # measured values stay at their own sites
+    ry, rx = tdm.PATTERNS[pattern]
+    np.testing.assert_array_equal(got.numpy()[0, ry::2, rx::2], x[ry::2, rx::2])

@@ -110,9 +110,11 @@ X_ENC = np.concatenate(
 GAMMAS = ["Linear", "sRGB", "Display P3", "Rec709", "Gamma 2.2", "Gamma 2.4", "ARRI LogC3"]
 
 # What each library documents, in ulp of its own float32 result:
-# - PyTorch's CPU exp2 and log2 run SLEEF's u10 functions in their vector
-#   loops (Sleef_exp2f*_u10, Sleef_log2f*_u10: at most 1.0 ulp) and the C
-#   library's exp2f/log2f (glibc: under 1 ulp) on the remainder.
+# - PyTorch's CPU exp2 runs SLEEF's u10 function in its vector loops
+#   (Sleef_exp2f*_u10: at most 1.0 ulp) and the C library's exp2f (glibc:
+#   under 1 ulp) on the remainder; its log2 is MKL VML's vmsLog2 in its
+#   high-accuracy mode where torch is built with MKL (under 1 ulp), else
+#   Sleef_log2f*_u10.
 SLEEF_ULP = 1.0
 # - JAX lowers exp2(t) to exp(float32(ln 2) * t) (jax/_src/lax/lax.py,
 #   _exp2_lower) and log2(x) to log(x) / log(2) (jax/_src/numpy/ufuncs.py).
@@ -166,8 +168,8 @@ UNARY = [
     "name,x,tf,jf,form,c,form_bound,jax_bound", UNARY, ids=[u[0] for u in UNARY]
 )
 def test_unary(name, x, tf, jf, form, c, form_bound, jax_bound):
-    def port():
-        return tf(torch.from_numpy(x)).numpy()
+    def port(arg=x):
+        return tf(torch.from_numpy(arg)).numpy()
 
     got = port()
     _hold(name, "form", x, got, np_forms()[form](x), form_bound(x, c), port)
@@ -175,18 +177,30 @@ def test_unary(name, x, tf, jf, form, c, form_bound, jax_bound):
 
 
 def _hold(name, against, x, got, want, bound, port) -> None:
-    """Every element within its ulp bound; a failure names the hold, the
+    """Every element within its ulp bound. A failure names the hold, the
     worst element (by distance over bound), its input, both values, its
-    distance and its bound, and what the port gives on a second call (a
-    transient fault or a wrong input shows there)."""
+    distance and its bound; where the elements over their bound lie (their
+    index range, and whether it is one contiguous block: ATen splits a
+    unary op into chunks of at least 2048 elements, one per intra-op
+    thread, so one chunk's size points to one worker thread's state);
+    ``torch.get_num_threads()``; what the port gives on a second call (a
+    transient fault shows there) and on a fresh copy of the input (a fault
+    of the input's memory shows there)."""
     dist = ulps_each(got, want)
     i = int(np.argmax(dist - bound))
     if dist[i] > bound[i]:
+        over = np.flatnonzero(dist > bound)
+        lo, hi = int(over[0]), int(over[-1])
         again = port()
+        copied = port(np.array(x, copy=True))
         raise AssertionError(
             f"{name} against {against}: x[{i}]={x[i]!r} gives {got[i]!r}, want {want[i]!r}: "
-            f"{int(dist[i])} ulp, bound {int(bound[i])} ({int(np.sum(dist > bound))} elements over); "
-            f"a second call gives {again[i]!r} ({int(np.sum(again != got))} elements differ from the first)"
+            f"{int(dist[i])} ulp, bound {int(bound[i])} ({over.size} elements over, indices "
+            f"{lo}..{hi}, {'one contiguous block' if hi - lo + 1 == over.size else 'scattered'}); "
+            f"torch.get_num_threads() {torch.get_num_threads()}; "
+            f"a second call gives {again[i]!r} ({int(np.sum(again != got))} elements differ from the first); "
+            f"a copy of x gives {copied[i]!r} ({int(np.sum(copied[over] == got[over]))} of the "
+            f"{over.size} wrong values again)"
         )
 
 
@@ -238,3 +252,20 @@ def test_encode_breakpoints():
 def test_unknown_gamma_raises():
     with pytest.raises(ValueError):
         tfm.encode(torch.zeros(2), "Cineon")
+
+
+def test_first_cpu_log2_runs_on_one_thread(monkeypatch):
+    """The port's first ``torch.log2`` on the CPU in a process takes 16
+    elements, which ATen runs on the calling thread alone (below its
+    2048-element grain), before any larger input. That call sets up MKL
+    VML's vmsLog2 (torch.log2's CPU form); a first call made by several
+    OpenMP threads at once, while XLA's threads were busy, gave whole
+    per-thread chunks of this file's X_LOG errors of up to 2.4e-5 in log2
+    (the fault behind test_unary[log10]'s rare failures)."""
+    calls = []
+    real = torch.log2
+    monkeypatch.setattr(tfm, "_log2_ready", False)
+    monkeypatch.setattr(torch, "log2", lambda x: calls.append(x.numel()) or real(x))
+    tfm.log10(torch.from_numpy(X_LOG))
+    tfm.powc(torch.from_numpy(X_POWC), 0.45)
+    assert calls == [16, X_LOG.size, X_POWC.size]

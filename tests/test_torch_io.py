@@ -1,5 +1,5 @@
 """The port's host edges against the JAX package: the staged RAW decode
-(``io/raw.py``: Bayer MHC on K1, half-size on K11, X-Trans, non-CFA data,
+(``io/raw.py``: Bayer MHC on K1, bilinear on K2, half-size on K11, X-Trans, non-CFA data,
 orientation, the exposure estimate), the JAX-free lens module, and the
 resampling of ``ops/resize.py`` against ``jax.image.resize``."""
 
@@ -53,6 +53,18 @@ def test_decode_raw_matches_jax(kind, half, orient):
     got = traw.decode_raw(raw, half_size=half).numpy()
     assert got.shape == ref.shape and got.dtype == np.float32
     assert np.abs(got - ref).max() <= (1e-5 if kind == "xtrans" else DECODE_TOL)
+
+
+@pytest.mark.parametrize("pattern,orient", [("RGGB", 1), ("GBRG", 6)])
+def test_decode_raw_bilinear_matches_jax(pattern, orient):
+    """``decode_raw(demosaic="bilinear")``: the full-size Bayer decode on
+    the bilinear stencils (on K2), within 1e-5 of the JAX decode."""
+    raw = _raw(pattern, orient)
+    ref = np.asarray(jraw.decode_raw(raw, demosaic="bilinear"))
+    got = traw.decode_raw(raw, demosaic="bilinear").numpy()
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 1e-5
+    assert np.abs(got - traw.decode_raw(raw).numpy()).max() > 1e-3  # not the MHC decode
 
 
 @pytest.mark.parametrize("orientation", range(1, 9))

@@ -1,7 +1,7 @@
 """The port stands alone: it imports and renders in a process where neither
 JAX nor the JAX package (``raw2film_tpu``) can be imported (the mosaic
-render, Processor.process() of a DNG on both paths, chroma NR, grain mode 3,
-a PreviewEngine frame, ``python -m raw2film_tpu_torch --list-stocks`` and a
+render, a sharded render on a device mesh, Processor.process() of a DNG on
+both paths, chroma NR, grain mode 3, a PreviewEngine frame, ``python -m raw2film_tpu_torch --list-stocks`` and a
 ``--device cpu`` export of the CLI), no file of it imports either, and its
 entry points run on the card unless asked for the CPU."""
 
@@ -41,6 +41,15 @@ hal = r2f.render_chain_from_mosaic(
     codes, data.REC709_TO_XYZ, bundle, cfg, 7, norm=(512.0, 1.0 / 15000.0), device="cpu"
 )
 assert tuple(hal.shape) == (3, 64, 384)
+# a sharded render (parallel/mesh.py): batch 2 x space 2 on repeated CPU
+# devices, halation, MTF, grain and burn, within 1 code of unsharded
+import torch
+from raw2film_tpu_torch.parallel import distributed, mesh as pmesh
+sb, sc = r2f.load_film_bundle(h=64, w=96, grain=2, sharpness=True, highlight_burn=0.3, device="cpu")
+xyz = torch.from_numpy(np.random.default_rng(1).uniform(0.05, 0.5, (2, 3, 64, 96)).astype(np.float32))
+sharded = pmesh.sharded_batch_render(pmesh.make_mesh(space=2, devices=["cpu"] * 4), sc)(xyz, sb, [3, 4])
+single = pmesh.batch_render_fn(sc)(xyz, sb, [3, 4])
+assert int((sharded.int() - single.int()).abs().max()) <= 1
 # Processor.process() of a DNG: the staged half-size default, the fused
 # full-res path, chroma NR, grain mode 3 (the field alone), then one frame
 # of the PreviewEngine

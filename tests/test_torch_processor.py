@@ -6,7 +6,9 @@ whose H is not a multiple of 4), with the grain branches K8, K9 and K7
 (grain mode 3), chroma NR and a rotated preview-scale frame. Also the
 host pieces it relies on (the Threefry grain key, the crop windows), the
 cache keyed on the file, and the JAX PreviewEngine and BatchRunner driving
-the port Processor by injection."""
+the port Processor by injection, and ``process_batch`` over a device mesh
+(repeated CPU devices) against the unsharded batch and the JAX Processor on
+its virtual mesh."""
 
 import os
 import threading
@@ -24,6 +26,7 @@ from raw2film_tpu.pipeline import processor as jproc
 from raw2film_tpu.pipeline.batch import BatchRunner
 from raw2film_tpu.pipeline.preview import PreviewEngine
 from raw2film_tpu_torch import Processor
+from raw2film_tpu_torch.parallel.mesh import make_mesh
 from raw2film_tpu_torch.pipeline import processor as tproc
 from test_golden import CASES as GOLDEN_CASES
 from test_golden import COMMON, GOLDEN_DIR, _scene
@@ -159,6 +162,26 @@ def test_process_batch_matches_jax(port, jax_proc, dngs):
     assert not np.array_equal(got[1], port.process(dngs[1], seed=9, cache=False, **kw))
 
 
+def test_process_batch_on_a_mesh_matches(port, jax_proc, dngs):
+    """Three full-res staged frames (96 x 144, under the 400 px/mm cap: no
+    resize) on a batch-only mesh of two CPU devices, so the group is padded
+    to four: bit-equal to the unsharded batch on the staged path, and within
+    1 code of the JAX Processor on a mesh of four virtual devices. Image i
+    keeps its key fold_in(PRNGKey(seed), i)."""
+    from raw2film_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    kw = dict(STOCKS, grain=2, highlight_burn=0.3, half_size=False)
+    srcs = [dngs[0], dngs[1], dngs[0]]
+    got = port.process_batch(srcs, seed=4, mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    want = port.process_batch(srcs, seed=4, fused_decode=False, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[0], got[2])  # same image, its own grain key
+    jmesh = jax_make_mesh(4, batch=4, space=1)
+    for g, w in zip(got, jax_proc.process_batch(srcs, seed=4, mesh=jmesh, **kw)):
+        assert _diff(g, w)[0] <= 1
+
+
 # ------------------------------------------------------------ host pieces
 
 
@@ -216,8 +239,11 @@ def test_cache_follows_the_file(tmp_path):
 
 
 def test_refusals(port, dngs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port.process_batch(dngs[:1], mesh=object(), **STOCKS)
+    # a mesh renders (it was refused until parallel/mesh.py was ported): a
+    # space-sharded batch of one at the half-size default
+    mesh = make_mesh(devices=["cpu"] * 2, batch=1, space=2)
+    out = port.process_batch(dngs[:1], mesh=mesh, **STOCKS)
+    assert len(out) == 1 and out[0].shape == (48, 72, 3) and out[0].dtype == np.uint8
     # chroma NR renders on the staged path (the fused path declines it)
     assert port.process(dngs[0], chroma_nr=2, half_size=False, max_scale=None, **STOCKS).shape == (96, 144, 3)
     assert port._mosaic_cache[0] is None
