@@ -111,7 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
         " process joins a torch.distributed gloo group before rendering;"
         " omit for independent hosts",
     )
-    p.add_argument("--trace", action="store_true", help="print per-stage timings")
+    p.add_argument(
+        "--trace", action="store_true",
+        help="record the program's spans and counters during the export and print, when it"
+        " ends, one line per span (calls x mean host ms, and device ms for kernel spans) and"
+        " one per counter (launches, host-device copies and bytes, bundle rebuilds)",
+    )
     p.add_argument(
         "--export-lut",
         metavar="FILE.cube",
@@ -185,9 +190,6 @@ def main(argv: list[str] | None = None) -> int:
             None if cli_over["print_film"] in (None, "", "None")
             else cli_over["print_film"]
         )
-
-    if args.trace:
-        os.environ["RAW2FILM_TRACE"] = "1"
 
     from raw2film_tpu_torch.film.loader import load_film_stocks
     from raw2film_tpu_torch.pipeline.batch import BatchRunner, export_path, scan_raw_files
@@ -373,8 +375,10 @@ def main(argv: list[str] | None = None) -> int:
         # Container parse + bitstream decode — the expensive host half —
         # runs in BatchRunner's worker pool ahead of the device.
         from raw2film_tpu_torch.io.dng import read_raw
+        from raw2film_tpu_torch.utils.trace import stage_timer
 
-        return (str(src), read_raw(str(src)))
+        with stage_timer("read"):
+            return (str(src), read_raw(str(src)))
 
     def process(payload, **params):
         src, raw = payload if isinstance(payload, tuple) else (payload, None)
@@ -431,11 +435,21 @@ def main(argv: list[str] | None = None) -> int:
 
     jobs = args.jobs or min(4, os.cpu_count() or 1)
     runner = BatchRunner(process, export, decode_fn=decode, workers=jobs)
+    if args.trace:
+        from raw2film_tpu_torch.utils import trace
+
+        was_recording = trace.recording()
+        trace.enable()
     t0 = time.perf_counter()
-    results = runner.run(
-        [(f, dict(cli_over)) for f in files],
-        progress=lambda done, total: print(f"[{done}/{total}]", flush=True),
-    )
+    try:
+        results = runner.run(
+            [(f, dict(cli_over)) for f in files],
+            progress=lambda done, total: print(f"[{done}/{total}]", flush=True),
+        )
+    finally:
+        if args.trace:
+            print("\n".join(trace.summary()))
+            trace.enable(was_recording)
     dt = time.perf_counter() - t0
     ok = sum(r.ok for r in results)
     for r in results:

@@ -18,6 +18,7 @@ import torch
 
 from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.ops import demosaic as dm
+from raw2film_tpu_torch.utils.trace import to_device, to_host
 
 
 def calc_exposure(
@@ -71,7 +72,7 @@ def _upload(data: np.ndarray, device) -> torch.Tensor:
     data = np.ascontiguousarray(data)
     if data.dtype != np.uint16:
         data = data.astype(np.float32)
-    return torch.as_tensor(data, device=device)
+    return to_device(data, device)
 
 
 def decode_raw(raw, half_size: bool = False, demosaic: str = "mhc", device=None) -> torch.Tensor:
@@ -116,6 +117,6 @@ def raw_to_linear(src, half_size: bool = True, device=None) -> tuple[torch.Tenso
     the exposure estimate reads is fetched to the host."""
     raw = src if isinstance(src, dng.RawImage) else dng.read_raw(str(src))
     xyz = decode_raw(raw, half_size=half_size, device=device)
-    lum = xyz[1, ::2, ::2].cpu().numpy()
+    lum = to_host(xyz[1, ::2, ::2]).numpy()
     gain = 2.0 ** calc_exposure(lum, metadata=raw.metadata, subsampled=True)
     return xyz * gain, raw.metadata

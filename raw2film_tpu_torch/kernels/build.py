@@ -19,6 +19,7 @@ can compare a whole render against them.
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import ctypes
 import hashlib
@@ -29,6 +30,8 @@ import threading
 
 import torch
 
+from raw2film_tpu_torch.utils import trace
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -38,14 +41,40 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Launch counts of the main path's kernels: each wrapper adds one where it
-# launches its kernel, and nowhere else.
-launches = {
-    "demosaic": 0, "half_size": 0, "pyramid_down": 0, "sep_rank": 0,
-    "sep_rank_narrow": 0, "pyramid_up_rows": 0, "pyramid_up": 0, "halation": 0,
-    "grain_apply": 0, "grain_apply_bw": 0, "grain_field": 0, "conv_w": 0,
-    "conv_h": 0, "print_encode": 0,
-}
+# The main path's kernels. Each wrapper counts ``launch.<kernel>`` (in
+# ``utils/trace.py``) where it launches its kernel, and nowhere else.
+KERNELS = (
+    "demosaic", "half_size", "pyramid_down", "sep_rank", "sep_rank_narrow", "pyramid_up_rows",
+    "pyramid_up", "halation", "grain_apply", "grain_apply_bw", "grain_field", "conv_w", "conv_h",
+    "print_encode",
+)
+
+
+class _Launches(collections.abc.MutableMapping):
+    """Launch counts by kernel: a view of the ``launch.<kernel>`` running
+    totals of ``utils/trace.py``, the one store."""
+
+    def __getitem__(self, kernel: str) -> int:
+        if kernel not in KERNELS:
+            raise KeyError(kernel)
+        return trace.COUNTS.get("launch." + kernel, 0)
+
+    def __setitem__(self, kernel: str, n: int) -> None:
+        if kernel not in KERNELS:
+            raise KeyError(kernel)
+        trace.COUNTS["launch." + kernel] = n
+
+    def __delitem__(self, kernel: str) -> None:
+        raise TypeError("a launch count is set, not deleted")
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+launches = _Launches()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -109,11 +138,19 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the library if it is missing; returns its path. The
-    compiler's register and spill report is kept in ``build_log``."""
-    global build_log
+    compiler's register and spill report is kept in ``build_log``. A
+    compile is recorded as the span and counter ``kernels.build``."""
     out = library_path()
     if os.path.exists(out):
         return out
+    with trace.stage_timer("kernels.build"):
+        trace.count("kernels.build")
+        _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
+    global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cus = [p for p in _sources() if p.endswith(".cu")]
@@ -139,15 +176,15 @@ def build() -> str:
             if os.path.exists(o):
                 os.remove(o)
     os.replace(tmp, out)
-    return out
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use; the load is recorded
+    as the span ``kernels.load``."""
     global _lib
     if _lib is not None:
         return _lib
-    with _lock:
+    with _lock, trace.stage_timer("kernels.load"):
         if _lib is None:
             handle = ctypes.CDLL(build())
             for name, argtypes in _SIGNATURES.items():

@@ -19,6 +19,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.utils import trace
+
 # Host-built resampling matrices kept on their device (:func:`device_matrix`):
 # at most this many, each a few MB at 45 MP (the burn's four: 7 MB).
 MATRIX_CACHE_SIZE = 16
@@ -91,7 +93,7 @@ def device_matrix(key, build, device) -> torch.Tensor:
     hit = _device_matrices.get(dkey)
     if hit is not None:
         return hit
-    mat = torch.tensor(np.ascontiguousarray(build(), np.float32), device=device)
+    mat = trace.to_device(np.ascontiguousarray(build(), np.float32), device, copy=True)
     with _matrix_lock:
         if len(_device_matrices) >= MATRIX_CACHE_SIZE:
             _device_matrices.pop(next(iter(_device_matrices)))
@@ -156,7 +158,7 @@ def conv1d_axis(img: torch.Tensor, k, axis: int) -> torch.Tensor:
     out = None
     for i in range(taps):
         if per_channel:
-            coef = torch.tensor(k[:, i], device=img.device).reshape(-1, 1, 1)
+            coef = trace.to_device(k[:, i], img.device, copy=True).reshape(-1, 1, 1)
         else:
             if k[i] == 0.0:
                 continue

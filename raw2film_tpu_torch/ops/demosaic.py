@@ -25,6 +25,7 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import sep_rank
 from raw2film_tpu_torch.ops.conv import pad_reflect, svd_separable
+from raw2film_tpu_torch.utils import trace
 
 PATTERNS = {
     "RGGB": (0, 0),
@@ -40,7 +41,7 @@ def _norm_pair(norm) -> tuple[float, float] | None:
     if norm is None:
         return None
     if isinstance(norm, torch.Tensor):
-        norm = norm.detach().cpu().numpy()
+        norm = trace.to_host(norm.detach()).numpy()
     n = np.asarray(norm, np.float32).reshape(-1)
     return float(n[0]), float(n[1])
 
@@ -124,7 +125,7 @@ def demosaic_kernel(bayer: torch.Tensor, ry: int, rx: int, mat=None, norm=None) 
         int(vec_path(w, bayer.dtype, src, dst)), kb.stream_ptr(bayer),
     )
     kb.check(err, "r2f_demosaic")
-    kb.launches["demosaic"] += 1
+    trace.count("launch.demosaic")
     return out
 
 
@@ -179,7 +180,7 @@ def half_size_decode(bayer: torch.Tensor, pattern: str = "RGGB", norm=None) -> t
         int(pair is not None), *(pair or (0.0, 1.0)), kb.stream_ptr(bayer),
     )
     kb.check(err, "r2f_half_size")
-    kb.launches["half_size"] += 1
+    trace.count("launch.half_size")
     return out
 
 
@@ -229,9 +230,7 @@ def demosaic_masked(mosaic: torch.Tensor, pattern: str, tile_h: int, tile_w: int
     code = {"R": 0, "G": 1, "B": 2}
     grid = np.array([code[c] for c in pattern], np.int32).reshape(tile_h, tile_w)
     full = np.tile(grid, (-(-h // tile_h), -(-w // tile_w)))[:h, :w]
-    masks = torch.as_tensor(
-        np.stack([(full == c) for c in range(3)]).astype(np.float32), device=mosaic.device
-    )
+    masks = trace.to_device(np.stack([(full == c) for c in range(3)]).astype(np.float32), mosaic.device)
     t3 = np.array([1.0, 2.0, 1.0], np.float32)
     t5 = np.array([1.0, 2.0, 3.0, 2.0, 1.0], np.float32)
     k3, k5 = np.outer(t3, t3), np.outer(t5, t5)

@@ -40,6 +40,7 @@ from raw2film_tpu_torch.film.grain import ISO_APERTURE_UM
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
+from raw2film_tpu_torch.utils import trace
 
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -225,7 +226,7 @@ def grain_apply(d: torch.Tensor, seed: tuple[int, int], sigma_px: float, prm: to
     kb.require(d, "density", torch.float32)
     if d.dim() != 3:
         raise ValueError(f"density: want (C, H, W), got {tuple(d.shape)}")
-    prm = prm.to(device=d.device, dtype=torch.float32).contiguous()
+    prm = trace.to_device(prm, d.device, torch.float32).contiguous()
     kb.require(prm, "grain prm", torch.float32, (6,))
     c, h, w = d.shape
     s, row_off = seed2(*seed)
@@ -237,7 +238,7 @@ def grain_apply(d: torch.Tensor, seed: tuple[int, int], sigma_px: float, prm: to
         ctypes.cast(ctaps, ctypes.c_void_p), len(taps), int(vec), kb.stream_ptr(d),
     )
     kb.check(err, "r2f_grain_apply")
-    kb.launches["grain_apply_bw" if bw else "grain_apply"] += 1
+    trace.count("launch.grain_apply_bw" if bw else "launch.grain_apply")
     return out
 
 
@@ -267,7 +268,7 @@ def grain_field(seed: tuple[int, int], hw: tuple[int, int], sigma_px: float, bw:
             len(taps), int(vec_path(w, field.data_ptr())), kb.stream_ptr(field),
         )
         kb.check(err, "r2f_grain_field")
-        kb.launches["grain_field"] += 1
+        trace.count("launch.grain_field")
     return field.expand(3, h, w) if bw else field
 
 

@@ -38,6 +38,7 @@ from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import conv as convops
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import pyramid, resize, sep_rank
+from raw2film_tpu_torch.utils import trace
 
 PYR_F = 4  # the pyramid factor K14 serves
 DEVELOP_LEN = 19  # [flare, dmin*3, gamma*3, x_toe*3, x_shoulder*3, w_toe*3, w_shoulder*3]
@@ -150,7 +151,7 @@ def pyramid_taps(f: int, terms):
 def _lerp_cols(rows_up: torch.Tensor, w: int) -> torch.Tensor:
     """x4 half-pixel lerp of the column axis with edge clamp, to width w."""
     i0, i1, w0, w1 = (
-        torch.tensor(a, device=rows_up.device)
+        trace.to_device(a, rows_up.device, copy=True)
         for a in pyramid.lerp_taps(rows_up.shape[-1], PYR_F, w)
     )
     return rows_up.index_select(-1, i0) * w0 + rows_up.index_select(-1, i1) * w1
@@ -256,27 +257,28 @@ def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:
     (C, H, ceil(W/4)) the row-upsampled pyramid blur; factors float32 (C,)
     and develop float32 (19,) tensors on img's device. Returns the combined
     exposure, or with ``develop`` the density. A launch copies nothing to
-    the device."""
-    c, h, w = img.shape
-    w4 = rows_up.shape[-1]
-    if tuple(rows_up.shape) != (c, h, w4) or (w4 - 1) * PYR_F >= w or w4 * PYR_F < w:
-        raise ValueError(f"rows_up {tuple(rows_up.shape)} does not fit img {(c, h, w)} at x{PYR_F}")
-    if not kb.use_kernel(img):
-        return halation_mega_plain(img, u, v, rows_up, factors, develop)
-    kb.require(img, "img", torch.float32)
-    kb.require(rows_up, "rows_up", torch.float32)
-    kb.require(factors, "factors", torch.float32, (c,))
-    if develop is not None:
-        kb.require(develop, "develop", torch.float32, (DEVELOP_LEN,))
-    p = pack(u, v, c, h, w)
-    out = torch.empty_like(img)
-    err = kb.lib().r2f_halation(
-        img.data_ptr(), rows_up.data_ptr(), out.data_ptr(), p.args_ptr, factors.data_ptr(),
-        develop.data_ptr() if develop is not None else None, kb.stream_ptr(img),
-    )
-    kb.check(err, "r2f_halation")
-    kb.launches["halation"] += 1
-    return out
+    the device. Recorded as the device span ``kernel.halation``."""
+    with trace.stage_timer("kernel.halation", device=img):
+        c, h, w = img.shape
+        w4 = rows_up.shape[-1]
+        if tuple(rows_up.shape) != (c, h, w4) or (w4 - 1) * PYR_F >= w or w4 * PYR_F < w:
+            raise ValueError(f"rows_up {tuple(rows_up.shape)} does not fit img {(c, h, w)} at x{PYR_F}")
+        if not kb.use_kernel(img):
+            return halation_mega_plain(img, u, v, rows_up, factors, develop)
+        kb.require(img, "img", torch.float32)
+        kb.require(rows_up, "rows_up", torch.float32)
+        kb.require(factors, "factors", torch.float32, (c,))
+        if develop is not None:
+            kb.require(develop, "develop", torch.float32, (DEVELOP_LEN,))
+        p = pack(u, v, c, h, w)
+        out = torch.empty_like(img)
+        err = kb.lib().r2f_halation(
+            img.data_ptr(), rows_up.data_ptr(), out.data_ptr(), p.args_ptr, factors.data_ptr(),
+            develop.data_ptr() if develop is not None else None, kb.stream_ptr(img),
+        )
+        kb.check(err, "r2f_halation")
+        trace.count("launch.halation")
+        return out
 
 
 # ------------------------------------------------------------ the stage
@@ -340,7 +342,7 @@ def halation_with_factors(img, scale: float, halation_size: float, factors) -> t
     """Halation with per-channel colour factors held as a tensor of 3, so
     slider values never rebuild anything; only (scale, halation_size) shape
     the kernels."""
-    factors = torch.as_tensor(factors, dtype=torch.float32, device=img.device).reshape(-1)
+    factors = trace.to_device(factors, img.device, torch.float32).reshape(-1)
     combined = halation_combined_fused(img, scale, halation_size, factors)
     if combined is not None:
         return combined

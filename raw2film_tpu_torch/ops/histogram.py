@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.device import require_cuda
+from raw2film_tpu_torch.utils import trace
 
 MAX_SAMPLES = 1 << 19
 
@@ -78,7 +79,7 @@ def generate_histogram(img_u8, height: int = 100, device=None) -> np.ndarray:
     CUDA device), the strip on the host."""
     if device is None:
         device = img_u8.device if isinstance(img_u8, torch.Tensor) else require_cuda()
-    img = torch.as_tensor(np.ascontiguousarray(img_u8) if isinstance(img_u8, np.ndarray) else img_u8,
-                          device=device)
-    return render_histogram(histogram_counts(img).cpu().numpy(), height)
+    img = trace.to_device(np.ascontiguousarray(img_u8) if isinstance(img_u8, np.ndarray) else img_u8,
+                          device)
+    return render_histogram(trace.to_host(histogram_counts(img)).numpy(), height)
 

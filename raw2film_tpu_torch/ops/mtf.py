@@ -16,6 +16,7 @@ import torch
 from raw2film_tpu_torch.ops import sep_rank
 from raw2film_tpu_torch.ops.grain import grain_corr_taps
 from raw2film_tpu_torch.ops.conv import svd_separable
+from raw2film_tpu_torch.utils import trace
 
 KERNEL_SIZE_MM = 0.1  # spatial support of the MTF kernel
 
@@ -130,8 +131,10 @@ def film_sharpness_grain(
     the (seed, row_off) pair of ``grain.seed2``. Where the TPU's K2 declines
     the shape (narrow frames), the JAX function returns None and the TPU
     runs the MTF on K4 and the grain on K8; the port's kernel serves every
-    shape, so it keeps the epilogue and launches once."""
-    u3, v3 = mtf_taps(mtf_key, scale, sharpening_strength, sharpening_sigma, signed)
-    return sep_rank.fused_sep_rank(
-        img, u3, v3, grain=(grain_seed, grain_prm, grain_corr_taps(float(grain_sigma_px)))
-    )
+    shape, so it keeps the epilogue and launches once. Recorded as the
+    device span ``kernel.mtf_grain``."""
+    with trace.stage_timer("kernel.mtf_grain", device=img):
+        u3, v3 = mtf_taps(mtf_key, scale, sharpening_strength, sharpening_sigma, signed)
+        return sep_rank.fused_sep_rank(
+            img, u3, v3, grain=(grain_seed, grain_prm, grain_corr_taps(float(grain_sigma_px)))
+        )

@@ -27,6 +27,7 @@ import torch
 
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import fastmath as fm
+from raw2film_tpu_torch.utils import trace
 
 PVEC_LEN = 61
 # The bundle entries the vector is packed from (pack_print_vec).
@@ -119,7 +120,7 @@ def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=
         raise ValueError(f"unknown print mode {mode!r}")
     if not kb.use_kernel(d):
         if not isinstance(pvec, torch.Tensor):
-            pvec = torch.as_tensor(np.array(pvec, np.float32), device=d.device)
+            pvec = trace.to_device(np.array(pvec, np.float32), d.device)
         return print_encode_plain(d, pvec, mode, shadow, sat_neutral, gamma, quantize, burn)
     if d.dim() != 3 or d.shape[0] != 3:
         raise ValueError(f"density: want (3, H, W), got {tuple(d.shape)}")
@@ -130,7 +131,7 @@ def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=
     # by value: a host array is read as it is; a device tensor's copy to the
     # host waits for the work queued before it (the density)
     if isinstance(pvec, torch.Tensor):
-        pvec = pvec.detach().to("cpu", torch.float32).numpy()
+        pvec = trace.to_host(pvec.detach()).to(torch.float32).numpy()
     pv = (ctypes.c_float * PVEC_LEN)(*np.asarray(pvec, np.float32).tolist())
     hs = ws = 0
     ptrs = (None, None, None)
@@ -151,5 +152,5 @@ def print_encode(d, pvec, mode, shadow, sat_neutral, gamma, quantize=True, burn=
         int(bool(quantize)), int(burn is not None), int(vec), kb.stream_ptr(d),
     )
     kb.check(err, "r2f_print_encode")
-    kb.launches["print_encode"] += 1
+    trace.count("launch.print_encode")
     return out

@@ -27,6 +27,7 @@ import torch
 
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops.conv import _lerp_matrix_full
+from raw2film_tpu_torch.utils import trace
 
 
 @lru_cache(maxsize=32)
@@ -94,7 +95,7 @@ def box_downsample_pyramid(img: torch.Tensor, f: int) -> torch.Tensor:
         int(box_vec_path(f, w, ptr)), kb.stream_ptr(img),
     )
     kb.check(err, "r2f_box_downsample")
-    kb.launches["pyramid_down"] += 1
+    trace.count("launch.pyramid_down")
     return out
 
 
@@ -107,7 +108,7 @@ def bilinear_upsample_rows_plain(img: torch.Tensor, f: int, oh: int | None = Non
     ``device.disable_tf32``)."""
     hs = img.shape[-2]
     oh = hs * int(f) if oh is None else int(oh)
-    uh = torch.tensor(_lerp_matrix_full(hs, int(f))[:oh], device=img.device)
+    uh = trace.to_device(_lerp_matrix_full(hs, int(f))[:oh], img.device, copy=True)
     return torch.matmul(uh, img)
 
 
@@ -141,7 +142,7 @@ def bilinear_upsample_rows(img: torch.Tensor, f: int, oh: int | None = None) -> 
         src, dst, c, hs, w, oh, ctypes.byref(table), int(rows_vec_path(w, src, dst)), kb.stream_ptr(img)
     )
     kb.check(err, "r2f_upsample_rows")
-    kb.launches["pyramid_up_rows"] += 1
+    trace.count("launch.pyramid_up_rows")
     return out
 
 
@@ -153,7 +154,7 @@ def bilinear_upsample_plain(img: torch.Tensor, f: int, out_hw: tuple[int, int]) 
     _lerp_matrix_full(w, f)[:ow].T`` in float32 (TF32 must be off)."""
     oh, ow = out_hw
     rows = bilinear_upsample_rows_plain(img, f, oh)
-    uw = torch.tensor(_lerp_matrix_full(img.shape[-1], int(f))[:ow].T, device=img.device)
+    uw = trace.to_device(_lerp_matrix_full(img.shape[-1], int(f))[:ow].T, img.device, copy=True)
     return torch.matmul(rows, uw)
 
 
@@ -211,5 +212,5 @@ def bilinear_upsample(img: torch.Tensor, f: int, out_hw: tuple[int, int] | None 
         img.data_ptr(), out.data_ptr(), c, hs, ws, oh, ow, ctypes.byref(table), kb.stream_ptr(img)
     )
     kb.check(err, "r2f_upsample")
-    kb.launches["pyramid_up"] += 1
+    trace.count("launch.pyramid_up")
     return out

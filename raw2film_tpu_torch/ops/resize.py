@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.ops import pyramid
+from raw2film_tpu_torch.utils import trace
 
 F32 = np.float32
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -71,10 +72,10 @@ def resize(img: torch.Tensor, out_hw: tuple[int, int], method: str = "linear",
     oh, ow = int(out_hw[0]), int(out_hw[1])
     out = img
     if oh != h:
-        wh = torch.tensor(weight_matrix(h, oh, method, antialias).T, device=img.device)
+        wh = trace.to_device(weight_matrix(h, oh, method, antialias).T, img.device, copy=True)
         out = torch.matmul(wh, out)
     if ow != w:
-        ww = torch.tensor(weight_matrix(w, ow, method, antialias), device=img.device)
+        ww = trace.to_device(weight_matrix(w, ow, method, antialias), img.device, copy=True)
         out = torch.matmul(out, ww)
     return out
 

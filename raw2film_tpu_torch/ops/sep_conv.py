@@ -30,6 +30,7 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops.conv import conv1d_axis
 from raw2film_tpu_torch.ops.sep_rank import _remember, taps_key
+from raw2film_tpu_torch.utils import trace
 
 MAX_TAPS = 256  # r2f::conv1d::MAX_TAPS: floats of taps passed by value
 K5_ALIGN = 4  # K5's window starts on a 16-byte quad of the row ...
@@ -113,7 +114,7 @@ def device_taps(p: Packed, device) -> torch.Tensor:
     hit = _device_taps.get(key)
     if hit is not None:
         return hit
-    return _remember(_device_taps, key, torch.as_tensor(p.taps.copy(), device=device))
+    return _remember(_device_taps, key, trace.to_device(p.taps.copy(), device))
 
 
 def vec_path(w: int, *ptrs: int) -> bool:
@@ -139,7 +140,7 @@ def _conv1d(img: torch.Tensor, taps, name: str) -> torch.Tensor:
         int(vec_path(w, img.data_ptr(), out.data_ptr())), kb.stream_ptr(img),
     )
     kb.check(err, "r2f_conv1d")
-    kb.launches[name] += 1
+    trace.count("launch." + name)
     return out
 
 

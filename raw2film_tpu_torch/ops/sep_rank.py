@@ -42,6 +42,7 @@ import torch
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops.conv import conv1d_axis
+from raw2film_tpu_torch.utils import trace
 
 
 K2_CHUNK = 512  # the TPU K2's column chunk (pallas_conv2.py:581)
@@ -282,7 +283,7 @@ def device_taps(p: Packed, device) -> torch.Tensor:
     hit = _device_taps.get(key)
     if hit is not None:
         return hit
-    return _remember(_device_taps, key, torch.as_tensor(p.taps.copy(), device=device))
+    return _remember(_device_taps, key, trace.to_device(p.taps.copy(), device))
 
 
 def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
@@ -304,7 +305,7 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
         (seed, row_off), prm, gt = grain
         if len(gt) > grain_ops.MAX_TAPS:
             raise ValueError(f"grain: {len(gt)} taps, the kernel takes {grain_ops.MAX_TAPS}")
-        prm = prm.to(device=img.device, dtype=torch.float32).contiguous()
+        prm = trace.to_device(prm, img.device, torch.float32).contiguous()
         kb.require(prm, "grain prm", torch.float32, (6,))
         prm_ptr = prm.data_ptr()
         gargs = ctypes.byref(GrainArgs(seed, row_off, len(gt), tuple(float(t) for t in gt)))
@@ -313,7 +314,7 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     )
     if err:
         kb.check(err, "r2f_sep_rank")
-    kb.launches["sep_rank_narrow" if grain is None and p.narrow else "sep_rank"] += 1
+    trace.count("launch.sep_rank_narrow" if grain is None and p.narrow else "launch.sep_rank")
     return out
 
 

@@ -42,10 +42,11 @@ def distributed_batch_render(mesh, cfg, local_xyz, bundle, local_keys):
     config: checked across the group before rendering. Returns this
     process's (B_local, 3, H, W) uint8 as numpy."""
     from raw2film_tpu_torch.parallel.mesh import sharded_batch_render
+    from raw2film_tpu_torch.utils.trace import to_device, to_host
 
     if not dist.is_initialized():
         raise RuntimeError("distributed_batch_render: join a process group first (init_process)")
-    local_xyz = torch.as_tensor(local_xyz, dtype=torch.float32, device=mesh.devices[0][0])
+    local_xyz = to_device(local_xyz, mesh.devices[0][0], torch.float32)
     mine = (tuple(local_xyz.shape), cfg)
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
@@ -55,4 +56,4 @@ def distributed_batch_render(mesh, cfg, local_xyz, bundle, local_keys):
             f"configs: {[o[0] for o in every]}"
         )
     out = sharded_batch_render(mesh, cfg)(local_xyz, bundle, np.asarray(local_keys))
-    return out.cpu().numpy()
+    return to_host(out).numpy()

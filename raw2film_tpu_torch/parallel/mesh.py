@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.pipeline.render import RenderConfig, bundle_to, render_chain
+from raw2film_tpu_torch.utils.trace import to_device
 
 
 @dataclass(frozen=True)
@@ -168,11 +169,11 @@ def sharded_batch_render(mesh: Mesh, cfg: RenderConfig, space_mode: str = "halo"
             for s, dev in enumerate(mesh.devices[i % batch]):
                 with _on(dev):
                     if space == 1:
-                        res = render_chain(xyz[i].to(dev), on_device(bundle, dev), cfg, seeds[i])
+                        res = render_chain(to_device(xyz[i], dev), on_device(bundle, dev), cfg, seeds[i])
                     else:
                         lo = s * h_loc - halo
                         rows = halo_rows(h, lo, lo + h_loc + 2 * halo, xyz.device)
-                        slab = xyz[i].index_select(1, rows).to(dev)
+                        slab = to_device(xyz[i].index_select(1, rows), dev)
                         res = render_chain(
                             slab, on_device(bundle, dev), cfg, seeds[i], lo, (h, w)
                         )[:, halo : halo + h_loc]

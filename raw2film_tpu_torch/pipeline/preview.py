@@ -4,17 +4,24 @@ The counterpart of ``raw2film_tpu/pipeline/preview.py``: one render thread,
 a one-slot "latest request" mailbox and callbacks, so rapid slider changes
 collapse into one render with the newest settings. It drives the port's
 Processor, and the histogram counts run on the Processor's device.
+
+Each turn of the worker is the request span ``preview.frame``, from the
+request it serves to its ``on_frame``: ``preview.wait`` (the request's time
+in the mailbox), ``preview.render`` (the Processor's ``process``) and
+``preview.histogram``. The counter ``preview.coalesced`` counts the requests
+that latest-wins dropped for it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections.abc import Callable
 
 import numpy as np
 
 from raw2film_tpu_torch.ops.histogram import generate_histogram
-from raw2film_tpu_torch.utils.trace import stage_timer
+from raw2film_tpu_torch.utils.trace import count, stage_timer
 
 
 class PreviewEngine:
@@ -54,7 +61,8 @@ class PreviewEngine:
             # The simplified preview drops the conv-heavy stages.
             params = {**params, "sharpness": False, "grain": 0, "halation": False}
         with self._lock:
-            self._pending = (src, params)
+            dropped = 0 if self._pending is None else self._pending[3] + 1
+            self._pending = (src, params, time.perf_counter_ns(), dropped)
             self._lock.notify()
 
     def close(self) -> None:
@@ -70,16 +78,21 @@ class PreviewEngine:
                     self._lock.wait()
                 if self._stop:
                     return
-                src, params = self._pending
+                src, params, asked_ns, dropped = self._pending
                 self._pending = None
-            try:
-                with stage_timer("preview.render"), self.proc_lock:
-                    image = self.processor.process(src, **params)
-                with stage_timer("preview.histogram"):
-                    hist = generate_histogram(
-                        image.transpose(2, 0, 1), self.histogram_height,
-                        device=self.processor.device,
-                    )
-                self.on_frame(image, hist)
-            except Exception as e:  # keep the loop alive on bad settings
-                self.on_error(e)
+            with stage_timer("preview.frame", start_ns=asked_ns):
+                with stage_timer("preview.wait", start_ns=asked_ns):
+                    pass
+                if dropped:
+                    count("preview.coalesced", dropped)
+                try:
+                    with stage_timer("preview.render"), self.proc_lock:
+                        image = self.processor.process(src, **params)
+                    with stage_timer("preview.histogram"):
+                        hist = generate_histogram(
+                            image.transpose(2, 0, 1), self.histogram_height,
+                            device=self.processor.device,
+                        )
+                    self.on_frame(image, hist)
+                except Exception as e:  # keep the loop alive on bad settings
+                    self.on_error(e)

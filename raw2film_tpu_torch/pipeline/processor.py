@@ -55,6 +55,7 @@ from raw2film_tpu_torch.pipeline.render import (
     render_chain,
     render_chain_from_mosaic,
 )
+from raw2film_tpu_torch.utils.trace import count, stage_timer, to_device, to_host
 
 MAX_SCALE_DEFAULT = 400.0  # px/mm preview cap
 
@@ -249,7 +250,8 @@ class Processor:
         if fkey is not None and key == self._decode_key:
             return self._decode
         arg = src if isinstance(src, dng.RawImage) else str(src)
-        result = raw_to_linear(arg, half_size=half_size, device=self.device)
+        with stage_timer("decode"):
+            result = raw_to_linear(arg, half_size=half_size, device=self.device)
         if fkey is not None:
             self._decode_key, self._decode = key, result
         return result
@@ -259,7 +261,8 @@ class Processor:
                    chroma_nr=0, max_scale=None, lens_correction=False, cam=None, lens=None):
         """Decode and geometry: returns ((3, H, W) XYZ on the device,
         orig_resolution, metadata). The decoded image makes a round trip
-        through the host for the lens remap and the geometry."""
+        through the host for the lens remap and the geometry (the span
+        ``geometry``; a decode is the span ``decode``)."""
         del chroma_nr  # noise reduction belongs to the render chain
         fkey = _file_key(src)
         cache = cache and fkey is not None
@@ -271,6 +274,7 @@ class Processor:
         if cache and key == self._image_cache_key:
             return self._image_cache
 
+        dev_xyz = None
         if isinstance(src, np.ndarray):
             xyz = np.asarray(src, np.float32)
             if xyz.ndim == 3 and xyz.shape[-1] == 3 and xyz.shape[0] != 3:
@@ -278,23 +282,25 @@ class Processor:
             metadata = {}
         else:
             dev_xyz, metadata = self._decoded(src, half_size, cache)
-            xyz = dev_xyz.cpu().numpy()
 
-        if lens_correction and metadata:
-            profile = self.lenses.get(lens) if lens else None
-            xyz = lens_mod.lens_correction(xyz, metadata, profile)
-        xyz = geometry.crop_rotate_zoom(xyz, frame_width, frame_height, rotation, zoom,
-                                        rotate_times, flip)
-        if resolution is None and max_scale is not None:
-            resolution = xyz.shape[-2:]
-        orig_resolution = tuple(resolution) if resolution is not None else None
-        out = torch.as_tensor(np.ascontiguousarray(xyz, np.float32), device=self.device)
-        if resolution is not None:
-            scale = max(resolution) / max(frame_width, frame_height)
-            if max_scale is not None and scale > max_scale:
-                f = max_scale / scale
-                resolution = [round(v * f) for v in resolution]
-            out = resolution_scaling(out, tuple(resolution)).contiguous()
+        with stage_timer("geometry"):
+            if dev_xyz is not None:
+                xyz = to_host(dev_xyz).numpy()
+            if lens_correction and metadata:
+                profile = self.lenses.get(lens) if lens else None
+                xyz = lens_mod.lens_correction(xyz, metadata, profile)
+            xyz = geometry.crop_rotate_zoom(xyz, frame_width, frame_height, rotation, zoom,
+                                            rotate_times, flip)
+            if resolution is None and max_scale is not None:
+                resolution = xyz.shape[-2:]
+            orig_resolution = tuple(resolution) if resolution is not None else None
+            out = to_device(np.ascontiguousarray(xyz, np.float32), self.device)
+            if resolution is not None:
+                scale = max(resolution) / max(frame_width, frame_height)
+                if max_scale is not None and scale > max_scale:
+                    f = max_scale / scale
+                    resolution = [round(v * f) for v in resolution]
+                out = resolution_scaling(out, tuple(resolution)).contiguous()
 
         result = (out, orig_resolution, metadata)
         if cache:
@@ -305,7 +311,7 @@ class Processor:
 
     def load_film_bundle(self, negative_film, print_film, merged: dict):
         """(bundle on the device, print mode), cached on the parameters that
-        shape it."""
+        shape it; a miss is the span ``bundle`` and counts ``bundle.miss``."""
         key = {
             "negative_film": negative_film.name,
             "print_film": print_film.name if print_film is not None else None,
@@ -314,45 +320,49 @@ class Processor:
         }
         if key == self._bundle_key:
             return self._bundle
-        neg_p = fchain.build_negative_params(
-            negative_film, exp_kelvin=merged["exp_kelvin"], tint=merged["tint"],
-            exp_comp=merged["exp_comp"], push_pull=merged["push_pull"],
-            color_masking=merged["color_masking"],
-        )
-        inversion = bool(merged.get("inversion", False)) or (
-            print_film is None and negative_film.film_type == "negative"
-        )
-        prt_p = fchain.build_print_params(
-            negative_film, print_film, red_light=merged["red_light"],
-            green_light=merged["green_light"], blue_light=merged["blue_light"],
-            projector_kelvin=merged["projector_kelvin"], shadow_comp=merged["shadow_comp"],
-            inversion_gamma=merged["inversion_gamma"], idealized_curve=merged["idealized_curve"],
-            inversion=inversion, white_balance=merged["white_balance"], neg_params=neg_p,
-        )
-        out_p = fchain.build_output_params(
-            negative_film, print_film, prt_p, neg_p, projector_kelvin=merged["projector_kelvin"],
-            sat_adjust=merged["sat_adjust"], gamma_func=merged["gamma_func"],
-            white_clip=merged["white_clip"],
-        )
-        d_ref = negative_film.d_ref
-        gm = negative_film.grain
-        d_min, *_ = negative_film.curve.params()
-        lo, hi = float(np.min(d_min)), float(np.max(negative_film.curve.d_max))
-        if hi < lo:
-            lo, hi = hi, lo
-        bundle = make_film_bundle(
-            neg_p, prt_p, out_p,
-            halation_intensity=merged["halation_intensity"],
-            halation_green_factor=merged["halation_green_factor"],
-            highlight_burn=merged["highlight_burn"],
-            d_ref_green=float(d_ref[1] if len(d_ref) > 1 else d_ref[0]),
-            grain_rms=(gm.rms if gm else 0.0),
-            grain_shape=(gm.peak_density, gm.width, gm.floor, lo, hi) if gm else (1.0, 1.2, 0.15, 0.0, 4.0),
-            sat=merged["sat_adjust"],
-            device=self.device,
-        )
-        self._bundle_key, self._bundle = key, (bundle, prt_p.mode)
-        return self._bundle
+        with stage_timer("bundle"):
+            count("bundle.miss")
+            neg_p = fchain.build_negative_params(
+                negative_film, exp_kelvin=merged["exp_kelvin"], tint=merged["tint"],
+                exp_comp=merged["exp_comp"], push_pull=merged["push_pull"],
+                color_masking=merged["color_masking"],
+            )
+            inversion = bool(merged.get("inversion", False)) or (
+                print_film is None and negative_film.film_type == "negative"
+            )
+            prt_p = fchain.build_print_params(
+                negative_film, print_film, red_light=merged["red_light"],
+                green_light=merged["green_light"], blue_light=merged["blue_light"],
+                projector_kelvin=merged["projector_kelvin"], shadow_comp=merged["shadow_comp"],
+                inversion_gamma=merged["inversion_gamma"], idealized_curve=merged["idealized_curve"],
+                inversion=inversion, white_balance=merged["white_balance"], neg_params=neg_p,
+            )
+            out_p = fchain.build_output_params(
+                negative_film, print_film, prt_p, neg_p, projector_kelvin=merged["projector_kelvin"],
+                sat_adjust=merged["sat_adjust"], gamma_func=merged["gamma_func"],
+                white_clip=merged["white_clip"],
+            )
+            d_ref = negative_film.d_ref
+            gm = negative_film.grain
+            d_min, *_ = negative_film.curve.params()
+            lo, hi = float(np.min(d_min)), float(np.max(negative_film.curve.d_max))
+            if hi < lo:
+                lo, hi = hi, lo
+            bundle = make_film_bundle(
+                neg_p, prt_p, out_p,
+                halation_intensity=merged["halation_intensity"],
+                halation_green_factor=merged["halation_green_factor"],
+                highlight_burn=merged["highlight_burn"],
+                d_ref_green=float(d_ref[1] if len(d_ref) > 1 else d_ref[0]),
+                grain_rms=(gm.rms if gm else 0.0),
+                grain_shape=(
+                    (gm.peak_density, gm.width, gm.floor, lo, hi) if gm else (1.0, 1.2, 0.15, 0.0, 4.0)
+                ),
+                sat=merged["sat_adjust"],
+                device=self.device,
+            )
+            self._bundle_key, self._bundle = key, (bundle, prt_p.mode)
+            return self._bundle
 
     # ------------------------------------------------------------ process
 
@@ -417,7 +427,7 @@ class Processor:
         cached = self._icc_cache.get(key)
         if cached is None or cached[0] is not icc_transform:
             u, v, w_bc, err = bake_output_cp(icc_transform)
-            arrays = tuple(torch.as_tensor(a, device=self.device) for a in (u, v, w_bc))
+            arrays = tuple(to_device(a, self.device) for a in (u, v, w_bc))
             cached = (icc_transform, arrays, err)
             self._icc_cache[key] = cached
         return cached[1]
@@ -434,48 +444,60 @@ class Processor:
 
     def _render(self, src, negative_film, print_film, load_kw, merged, key, cache, fused,
                 icc, finish_kw) -> np.ndarray:
-        """One image through the fused or the staged path, then _finish."""
-        fast = parsed = None
-        if fused:
-            fast, parsed = self._try_load_mosaic(src, load_kw, cache=cache)
-        if fast is None:
-            xyz, orig_resolution, meta = self.load_image(
-                parsed if parsed is not None else src, cache=cache, **load_kw
-            )
-            self.last_metadata = dict(meta or {})
-            out_hw = tuple(xyz.shape[-2:])
-        else:
-            orig_resolution = None
-            self.last_metadata = dict(parsed.metadata or {})
-            mosaic, norm, pattern, cam_m, gain, crop = fast
-            out_hw = (crop[2], crop[3]) if crop is not None else mosaic.shape
-        bundle, prt_mode = self.load_film_bundle(negative_film, print_film, merged)
-        scale = max(out_hw) / max(load_kw["frame_width"], load_kw["frame_height"])
-        cfg = build_render_config(negative_film, print_film, prt_mode, scale, merged)
-        bundle, cfg = self._attach_icc(bundle, cfg, icc)
-        seed = grain_seed(key)
-        if fast is None:
-            out = render_chain(xyz, bundle, cfg, seed)
-        else:
-            out = render_chain_from_mosaic(
-                mosaic, cam_m, bundle, cfg, seed, pattern, gain, crop, norm, device=self.device
-            )
-        return self._finish(out.cpu().numpy(), orig_resolution=orig_resolution, **finish_kw)
+        """One image through the fused or the staged path, then _finish: the
+        request span ``process`` (``process()``, and each image of
+        ``process_batch`` without a mesh)."""
+        with stage_timer("process"):
+            fast = parsed = None
+            if fused:
+                fast, parsed = self._try_load_mosaic(src, load_kw, cache=cache)
+            if fast is None:
+                xyz, orig_resolution, meta = self.load_image(
+                    parsed if parsed is not None else src, cache=cache, **load_kw
+                )
+                self.last_metadata = dict(meta or {})
+                out_hw = tuple(xyz.shape[-2:])
+            else:
+                orig_resolution = None
+                self.last_metadata = dict(parsed.metadata or {})
+                mosaic, norm, pattern, cam_m, gain, crop = fast
+                out_hw = (crop[2], crop[3]) if crop is not None else mosaic.shape
+            bundle, prt_mode = self.load_film_bundle(negative_film, print_film, merged)
+            scale = max(out_hw) / max(load_kw["frame_width"], load_kw["frame_height"])
+            cfg = build_render_config(negative_film, print_film, prt_mode, scale, merged)
+            bundle, cfg = self._attach_icc(bundle, cfg, icc)
+            seed = grain_seed(key)
+            if fast is None:
+                out = render_chain(xyz, bundle, cfg, seed)
+            else:
+                out = render_chain_from_mosaic(
+                    mosaic, cam_m, bundle, cfg, seed, pattern, gain, crop, norm, device=self.device
+                )
+            with stage_timer("render.download"):
+                host = to_host(out).numpy()
+            return self._finish(host, orig_resolution=orig_resolution, **finish_kw)
 
     def _finish(self, out_chw: np.ndarray, canvas_mode="No", canvas_scale=1.0,
                 canvas_ratio=1.0, orig_resolution=None) -> np.ndarray:
         """(3, H, W) uint8 -> (H, W, 3): the canvas, then the resize back to
         ``orig_resolution`` (clipped and truncated to uint8, as in the JAX
-        Processor)."""
-        image = out_chw.transpose(1, 2, 0)
-        image = canvas.add_canvas(image, canvas_mode, canvas_scale, canvas_ratio)
-        if orig_resolution is not None and tuple(image.shape[:2]) != tuple(orig_resolution):
-            chw = torch.as_tensor(
-                np.ascontiguousarray(image.transpose(2, 0, 1)), dtype=torch.float32, device=self.device
-            )
-            scaled = resolution_scaling(chw, tuple(orig_resolution)).cpu().numpy()
-            image = np.clip(scaled, 0, 255).astype(np.uint8).transpose(1, 2, 0)
-        return image
+        Processor). The span ``finish``, with ``finish.upload``,
+        ``finish.resize``, ``finish.download`` and ``finish.cast`` for the
+        resize back."""
+        with stage_timer("finish"):
+            image = out_chw.transpose(1, 2, 0)
+            image = canvas.add_canvas(image, canvas_mode, canvas_scale, canvas_ratio)
+            if orig_resolution is not None and tuple(image.shape[:2]) != tuple(orig_resolution):
+                with stage_timer("finish.upload"):
+                    chw = to_device(np.ascontiguousarray(image.transpose(2, 0, 1)), self.device,
+                                    torch.float32)
+                with stage_timer("finish.resize"):
+                    scaled = resolution_scaling(chw, tuple(orig_resolution))
+                with stage_timer("finish.download"):
+                    scaled = to_host(scaled).numpy()
+                with stage_timer("finish.cast"):
+                    image = np.clip(scaled, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+            return image
 
     # ---------------------------------------------------------- fused path
 
@@ -496,7 +518,8 @@ class Processor:
         """Fused-path eligibility and host preparation: ((mosaic, norm,
         pattern, cam_to_xyz, exposure gain, crop) | None, the parsed
         RawImage | None). An ineligible parsed file is handed back so the
-        staged path does not parse it again."""
+        staged path does not parse it again. Past the eligibility checks,
+        the span ``prep``, with ``prep.read`` and ``prep.exposure``."""
         if isinstance(src, np.ndarray):
             return None, None
         if load_kw.get("half_size", True):
@@ -510,45 +533,51 @@ class Processor:
             return None, None
         if load_kw.get("cam") is not None:
             return None, None
-        raw = src if isinstance(src, dng.RawImage) else dng.read_raw(str(src))
-        if raw.cfa_pattern is None or len(raw.cfa_pattern) != 4:
-            return None, raw
-        if int(raw.metadata.get("EXIF:Orientation", 1) or 1) != 1:
-            return None, raw
-        if load_kw.get("lens_correction"):
-            # Eligible only when lens correction is a no-op (no profile).
-            lens_name = load_kw.get("lens")
-            prof = self.lenses.get(lens_name) if lens_name else lens_mod.find_profile(raw.metadata)
-            if prof is not None:
+        with stage_timer("prep"):
+            if isinstance(src, dng.RawImage):
+                raw = src
+            else:
+                with stage_timer("prep.read"):
+                    raw = dng.read_raw(str(src))
+            if raw.cfa_pattern is None or len(raw.cfa_pattern) != 4:
                 return None, raw
-        inv_range = 1.0 / max(raw.white_level - raw.black_level, 1.0)
-        norm = np.asarray([raw.black_level, inv_range], np.float32)
-        mosaic_u16 = np.ascontiguousarray(raw.data)
-        if mosaic_u16.dtype != np.uint16:
-            # Integral sensor codes held as float (RAF, RW2) upload as u16.
-            as_u16 = mosaic_u16.astype(np.uint16)
-            if (
-                mosaic_u16.min() >= 0.0
-                and mosaic_u16.max() <= 65535.0
-                and np.array_equal(as_u16.astype(mosaic_u16.dtype), mosaic_u16)
-            ):
-                mosaic_u16 = as_u16
-        cam = (
-            np.linalg.inv(np.asarray(raw.color_matrix, np.float64))
-            if raw.color_matrix is not None
-            else np.eye(3)
-        ).astype(np.float32)
-        # The staged path estimates exposure on the whole decoded frame,
-        # before the aspect crop; so does this.
-        gain = np.float32(2.0 ** calc_exposure(
-            _half_size_xyz(raw.data, raw.cfa_pattern, cam, black=float(raw.black_level),
-                           inv_range=float(inv_range)),
-            metadata=raw.metadata,
-        ))
-        fw = float(load_kw.get("frame_width", 36.0))
-        fh = float(load_kw.get("frame_height", 24.0))
-        mosaic, crop = _mosaic_aspect_crop(mosaic_u16, fw / fh)
-        return (mosaic, norm, raw.cfa_pattern, cam, gain, crop), raw
+            if int(raw.metadata.get("EXIF:Orientation", 1) or 1) != 1:
+                return None, raw
+            if load_kw.get("lens_correction"):
+                # Eligible only when lens correction is a no-op (no profile).
+                lens_name = load_kw.get("lens")
+                prof = self.lenses.get(lens_name) if lens_name else lens_mod.find_profile(raw.metadata)
+                if prof is not None:
+                    return None, raw
+            inv_range = 1.0 / max(raw.white_level - raw.black_level, 1.0)
+            norm = np.asarray([raw.black_level, inv_range], np.float32)
+            mosaic_u16 = np.ascontiguousarray(raw.data)
+            if mosaic_u16.dtype != np.uint16:
+                # Integral sensor codes held as float (RAF, RW2) upload as u16.
+                as_u16 = mosaic_u16.astype(np.uint16)
+                if (
+                    mosaic_u16.min() >= 0.0
+                    and mosaic_u16.max() <= 65535.0
+                    and np.array_equal(as_u16.astype(mosaic_u16.dtype), mosaic_u16)
+                ):
+                    mosaic_u16 = as_u16
+            cam = (
+                np.linalg.inv(np.asarray(raw.color_matrix, np.float64))
+                if raw.color_matrix is not None
+                else np.eye(3)
+            ).astype(np.float32)
+            # The staged path estimates exposure on the whole decoded frame,
+            # before the aspect crop; so does this.
+            with stage_timer("prep.exposure"):
+                gain = np.float32(2.0 ** calc_exposure(
+                    _half_size_xyz(raw.data, raw.cfa_pattern, cam, black=float(raw.black_level),
+                                   inv_range=float(inv_range)),
+                    metadata=raw.metadata,
+                ))
+            fw = float(load_kw.get("frame_width", 36.0))
+            fh = float(load_kw.get("frame_height", 24.0))
+            mosaic, crop = _mosaic_aspect_crop(mosaic_u16, fw / fh)
+            return (mosaic, norm, raw.cfa_pattern, cam, gain, crop), raw
 
     # ---------------------------------------------------------- batch
 
@@ -604,7 +633,7 @@ class Processor:
             self.last_metadata = dict(meta or {})
             # held on the host, as the JAX Processor holds its decoded
             # arrays, so a long roll does not fill the card
-            buckets.setdefault(tuple(xyz.shape), []).append((idx, xyz.cpu(), orig_resolution))
+            buckets.setdefault(tuple(xyz.shape), []).append((idx, to_host(xyz), orig_resolution))
         bundle, prt_mode = self.load_film_bundle(negative_film, print_film, merged)
         fw, fh = load_kw["frame_width"], load_kw["frame_height"]
         per = mesh.shape["batch"]
@@ -621,9 +650,9 @@ class Processor:
                 part = items[g0 : g0 + group]
                 n = len(part)
                 tiled = [part[k % n] for k in range(n + (-n) % per)]
-                batch = torch.stack([x for _, x, _ in tiled]).to(self.device)
+                batch = to_device(torch.stack([x for _, x, _ in tiled]), self.device)
                 seeds = [grain_seed(fold_in(base, idx)) for idx, _, _ in tiled]
-                out = render(batch, bundle_c, seeds)[:n].cpu().numpy()
+                out = to_host(render(batch, bundle_c, seeds)[:n]).numpy()
                 for (idx, _, orig_resolution), img in zip(part, out):
                     results[idx] = self._finish(img, orig_resolution=orig_resolution, **finish_kw)
         return results

@@ -45,6 +45,7 @@ from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
+from raw2film_tpu_torch.utils.trace import stage_timer, to_device, to_host
 
 
 @dataclass(frozen=True)
@@ -97,7 +98,7 @@ def make_film_bundle(
     (:func:`host_print_vec`)."""
 
     def dev(a):
-        return torch.as_tensor(np.array(a, np.float32), device=device)
+        return to_device(np.array(a, np.float32), device)
 
     print_parts = {
         "a": prt_p.a, "log_e0": prt_p.log_e0, "prt_curve": prt_p.curve, "d_offset": prt_p.d_offset,
@@ -163,8 +164,8 @@ def bundle_to(bundle: dict, device) -> dict:
 
     def to(v):
         if isinstance(v, tuple):
-            return tuple(t.to(device) for t in v)
-        return v.to(device) if isinstance(v, torch.Tensor) else v
+            return tuple(to_device(t, device) for t in v)
+        return to_device(v, device) if isinstance(v, torch.Tensor) else v
 
     return {k: to(v) for k, v in bundle.items()}
 
@@ -284,7 +285,17 @@ def render_chain(
     row of its row 0 as ``grain_row_offset``, so its grain hash rows are the
     frame's, and the frame's (H, W) as ``burn_ref_hw``, so the burn takes
     the frame's factor and aligns its cells to the frame's grid at that
-    same row offset."""
+    same row offset.
+
+    One call is the span ``render``, with the spans ``render.halation``,
+    ``render.develop``, ``render.mtf_grain``, ``render.burn`` and
+    ``render.print`` inside it for the stages that run."""
+    with stage_timer("render"):
+        return _chain(xyz, bundle, cfg, seed, grain_row_offset, burn_ref_hw, input_is_exposure)
+
+
+def _chain(xyz, bundle, cfg, seed, grain_row_offset=0, burn_ref_hw=None, input_is_exposure=False):
+    """:func:`render_chain` inside its span."""
     if input_is_exposure:
         ep = xyz.contiguous()  # a cropped exposure image is a strided view
     else:
@@ -296,37 +307,73 @@ def render_chain(
 
     d = None
     if cfg.halation:
-        factors = hal_ops.colour_factors(bundle, cfg.bw)
-        # With identity masking (the default) K14 also develops to density,
-        # so the exposure image never returns to memory.
-        devvec = hal_ops.develop_vector(bundle) if cfg.mask_identity else None
-        combined = hal_ops.halation_combined_fused(
-            ep, cfg.scale, cfg.halation_size, factors, develop=devvec
-        )
-        if combined is None:  # below the mixture tier: glow, then the combine
-            blur = hal_ops.halation_blur(ep, cfg.scale, cfg.halation_size)
-            f = factors.reshape(3, 1, 1)
-            ep = (ep + f * blur) / (1.0 + f)
-        elif devvec is not None:
-            d = combined  # developed in K14
-        else:
-            ep = combined
+        with stage_timer("render.halation"):
+            factors = hal_ops.colour_factors(bundle, cfg.bw)
+            # With identity masking (the default) K14 also develops to
+            # density, so the exposure image never returns to memory.
+            devvec = hal_ops.develop_vector(bundle) if cfg.mask_identity else None
+            combined = hal_ops.halation_combined_fused(
+                ep, cfg.scale, cfg.halation_size, factors, develop=devvec
+            )
+            if combined is None:  # below the mixture tier: glow, then the combine
+                blur = hal_ops.halation_blur(ep, cfg.scale, cfg.halation_size)
+                f = factors.reshape(3, 1, 1)
+                ep = (ep + f * blur) / (1.0 + f)
+            elif devvec is not None:
+                d = combined  # developed in K14
+            else:
+                ep = combined
 
     if d is None:
-        d = _develop(ep, bundle)
+        with stage_timer("render.develop"):
+            d = _develop(ep, bundle)
 
     mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
     grain_on = bool(cfg.grain and cfg.has_grain)
+    if mtf_on or grain_on:
+        with stage_timer("render.mtf_grain"):
+            d = _mtf_grain(d, bundle, cfg, seed, grain_row_offset, mtf_on, grain_on)
+
+    burn_args = None
+    if cfg.highlight_burn:
+        with stage_timer("render.burn"):
+            burn_row = grain_row_offset if burn_ref_hw is not None else None
+            burn_args = burn_ops.burn_smallmap(
+                d, bundle["d_ref_green"], cfg.burn_scale, ref_hw=burn_ref_hw, row_offset=burn_row
+            )
+            if burn_args is None:
+                d = burn_ops.burn(
+                    d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale,
+                    ref_hw=burn_ref_hw, row_offset=burn_row,
+                )
+    with stage_timer("render.print"):
+        out = pe.print_encode(
+            d.contiguous(), bundle["pvec_host"], cfg.print_mode, cfg.shadow_comp,
+            cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize and not cfg.icc, burn=burn_args,
+        )
+        if not cfg.icc:
+            return out
+        # The ICC display/softproof transform, baked into a CP-factored LUT
+        # and applied to the encoded float image before the 8-bit rounding.
+        rgb = torch.clamp(
+            apply_lut_3d_cp(out, bundle["icc_u"], bundle["icc_v"], bundle["icc_w"], scale=1.0), 0.0, 1.0
+        )
+        if not cfg.quantize:
+            return rgb
+        return torch.round(rgb * 255.0).to(torch.uint8)
+
+
+def _mtf_grain(d, bundle, cfg, seed, grain_row_offset, mtf_on, grain_on):
+    """The MTF and the grain stages of :func:`render_chain`."""
     if grain_on:
         prm = grain_ops.grain_params(bundle["grain_rms"], bundle["grain_shape"], cfg.scale)
         sigma_px = grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma)
         gseed = grain_ops.seed2(seed, grain_row_offset)
     if mtf_on and grain_on and cfg.grain == 2:
-        d = mtf_ops.film_sharpness_grain(
+        return mtf_ops.film_sharpness_grain(
             d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
             gseed, sigma_px, prm, signed=cfg.mtf_signed,
         )
-        mtf_on = grain_on = False
     if mtf_on:
         d = mtf_ops.film_sharpness(
             d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength, cfg.sharpening_sigma,
@@ -341,32 +388,7 @@ def render_chain(
         # 1 only off the TPU; here grain 1 always takes K9).
         field = grain_ops.grain_field(gseed, tuple(d.shape[-2:]), sigma_px, device=d.device)
         d = torch.clamp(d + grain_ops.grain_amplitude(d, prm) * field, min=0.0)
-
-    burn_args = None
-    if cfg.highlight_burn:
-        burn_row = grain_row_offset if burn_ref_hw is not None else None
-        burn_args = burn_ops.burn_smallmap(
-            d, bundle["d_ref_green"], cfg.burn_scale, ref_hw=burn_ref_hw, row_offset=burn_row
-        )
-        if burn_args is None:
-            d = burn_ops.burn(
-                d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale,
-                ref_hw=burn_ref_hw, row_offset=burn_row,
-            )
-    out = pe.print_encode(
-        d.contiguous(), bundle["pvec_host"], cfg.print_mode, cfg.shadow_comp,
-        cfg.sat_neutral, cfg.gamma_func, quantize=cfg.quantize and not cfg.icc, burn=burn_args,
-    )
-    if not cfg.icc:
-        return out
-    # The ICC display/softproof transform, baked into a CP-factored LUT and
-    # applied to the encoded float image before the 8-bit rounding.
-    rgb = torch.clamp(
-        apply_lut_3d_cp(out, bundle["icc_u"], bundle["icc_v"], bundle["icc_w"], scale=1.0), 0.0, 1.0
-    )
-    if not cfg.quantize:
-        return rgb
-    return torch.round(rgb * 255.0).to(torch.uint8)
+    return d
 
 
 def _print_tail(d: torch.Tensor, bundle: dict, cfg: RenderConfig) -> torch.Tensor:
@@ -383,7 +405,7 @@ def fold_input_matrix(m_in, cam_to_xyz, exposure_gain=1.0) -> np.ndarray:
 
     def host(a):
         if isinstance(a, torch.Tensor):
-            a = a.detach().cpu().numpy()
+            a = to_host(a.detach()).numpy()
         return np.asarray(a, np.float32)
 
     return np.matmul(host(m_in), host(cam_to_xyz) * host(exposure_gain))
@@ -409,18 +431,20 @@ def render_chain_from_mosaic(
     inv_range), normalized on the device, or float32 in [0, 1]. ``crop``:
     (y0, x0, h, w) window taken after the demosaic. ``device``: where to
     render; by default the first CUDA device (raises without one), never
-    the CPU unless asked with ``device="cpu"``."""
+    the CPU unless asked with ``device="cpu"``. One call is the span
+    ``render``, as :func:`render_chain`'s."""
     if cfg.chroma_nr != 0:
         raise ValueError(
             "render_chain_from_mosaic does not support chroma_nr; decode "
             "to XYZ and use render_chain (the staged path) instead"
         )
     device = torch.device(device) if device is not None else require_cuda()
-    mosaic = torch.as_tensor(mosaic, device=device).contiguous()
-    b = bundle_to(bundle, device)
-    mat = fold_input_matrix(b["m_in_host"], cam_to_xyz, exposure_gain)
-    ep = dm.demosaic_exposure(mosaic, pattern, mat, norm=norm)
-    if crop is not None:
-        y0, x0, ch, cw = crop
-        ep = ep[:, y0 : y0 + ch, x0 : x0 + cw]
-    return render_chain(ep, b, cfg, seed, input_is_exposure=True)
+    with stage_timer("render"):
+        mosaic = to_device(mosaic, device).contiguous()
+        b = bundle_to(bundle, device)
+        mat = fold_input_matrix(b["m_in_host"], cam_to_xyz, exposure_gain)
+        ep = dm.demosaic_exposure(mosaic, pattern, mat, norm=norm)
+        if crop is not None:
+            y0, x0, ch, cw = crop
+            ep = ep[:, y0 : y0 + ch, x0 : x0 + cw]
+        return _chain(ep, b, cfg, seed, input_is_exposure=True)

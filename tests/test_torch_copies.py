@@ -7,7 +7,10 @@ native decoders is copied byte for byte), with stated exceptions, each
 listed by top-level definition, import or module docstring (``EXCEPT``):
 ``config.py`` drops ``enable_persistent_jit_cache`` (it imports JAX), the
 native loader builds its library into the port's ``_build/`` directory,
-``utils/trace.py`` nests a torch profiler range, ``io/thumbnail.py``'s
+``utils/trace.py`` is the port's recorder (spans in request trees with
+profiler ranges and CUDA event pairs, counters, copy helpers, recording off
+by default, statistics over every call since the reset: its imports and
+definitions replace the original's), ``io/thumbnail.py``'s
 decode fallback copies its tensor to the host on the caller's device,
 ``pipeline/batch.py`` drops its unused JAX imports,
 ``parallel/distributed.py`` joins a torch.distributed group and renders
@@ -57,7 +60,13 @@ COPIES = [
 EXCEPT = {
     "config.py": {"enable_persistent_jit_cache"},
     "native/__init__.py": {"_LIB_PATH", "_build"},
-    "utils/trace.py": {"__doc__", "torch.profiler", "_ENABLED", "_enabled", "stage_timer"},
+    "utils/trace.py": {
+        "__doc__", "collections", "contextlib", "itertools", "threading", "torch", "torch.profiler",
+        "_ENABLED", "_enabled", "_RECORDING", "_RANGES", "_EVENTS", "COUNTS", "_LOG", "_OPEN",
+        "_SPAN_IDS", "_REQUEST_IDS", "enable", "recording", "_Off", "_OFF", "_stack", "Span",
+        "_event_pair", "stage_timer", "count", "on_host", "to_host", "to_device", "requests",
+        "stage_stats", "summary", "reset_stats",
+    },
     "io/thumbnail.py": {"extract_thumb"},
     "pipeline/batch.py": {"jax", "jax.numpy"},
     "parallel/distributed.py": {
@@ -70,8 +79,9 @@ EXCEPT = {
 
 
 def _without(src: str, names: set) -> str:
-    """``src`` without its top-level definitions, assignments and imports
-    of ``names`` (and its docstring for "__doc__"), runs of blank lines
+    """``src`` without its top-level definitions (with their decorators),
+    assignments (annotated or not) and imports of ``names`` (and its docstring for
+    "__doc__"), runs of blank lines
     cut to one and trailing blank space trimmed."""
     lines = src.split("\n")
     drop = set()
@@ -79,6 +89,8 @@ def _without(src: str, names: set) -> str:
         targets = [getattr(node, "name", None)]
         if isinstance(node, ast.Assign):
             targets = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            targets = [node.target.id]
         elif isinstance(node, ast.Import):
             targets = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
@@ -86,7 +98,8 @@ def _without(src: str, names: set) -> str:
         elif i == 0 and isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant):
             targets = ["__doc__"]
         if any(t in names for t in targets):
-            drop.update(range(node.lineno - 1, node.end_lineno))
+            first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
+            drop.update(range(first - 1, node.end_lineno))
     kept = "\n".join(line for i, line in enumerate(lines) if i not in drop)
     return re.sub(r"\n{3,}", "\n\n", kept).rstrip()
 

@@ -593,14 +593,18 @@ class _FakeLib:
 @pytest.fixture
 def fake_launch(monkeypatch):
     """The wrappers' kernel path on CPU tensors, into a _FakeLib; the launch
-    counts are a copy, restored afterwards."""
+    counts start from 0 and are restored afterwards (they are the
+    ``launch.<kernel>`` counters of ``utils/trace.py``, which ``kb.launches``
+    shows, so they are saved and set back rather than swapped for a copy)."""
     lib = _FakeLib()
     monkeypatch.setattr(kb, "use_kernel", lambda t: True)
     monkeypatch.setattr(kb, "require", lambda *a, **k: None)
     monkeypatch.setattr(kb, "lib", lambda: lib)
     monkeypatch.setattr(kb, "stream_ptr", lambda t: 0)
-    monkeypatch.setattr(kb, "launches", dict(kb.launches))
-    return lib
+    saved = dict(kb.launches)
+    kb.reset_launches()
+    yield lib
+    kb.launches.update(saved)
 
 
 @pytest.mark.parametrize(

@@ -107,17 +107,33 @@ def test_preview_engine_matches_jax(name, frame):
 
 def test_preview_engine_logs_its_stages(frame):
     """The engine times its render and histogram with ``utils/trace.py``'s
-    stage timer, as the JAX engine does: both land in the rolling stage log
+    stage timer, as the JAX engine does: both land in the stage log
     (``stage_stats``) that the CLI's ``--trace`` reads, under the JAX
-    engine's names."""
+    engine's names. The port records only while recording is on, and its
+    log holds the Processor's spans too, inside the engine's request tree
+    (``preview.frame`` over ``process``): so the JAX engine's names and
+    counts are among the port's stages, not all of them."""
     from raw2film_tpu.utils import trace as jtrace
     from raw2film_tpu_torch.utils import trace as ttrace
 
     params = dict(STOCKS, seed=3, **PREVIEWS["simplified-30"])
-    for trace, engine_cls, proc in ((ttrace, PreviewEngine, Processor(device="cpu")),
-                                    (jtrace, jpreview.PreviewEngine, jproc.Processor())):
-        trace.reset_stats()
-        _run(engine_cls, proc, frame, **params)
-        stats = trace.stage_stats()
-        assert {k: v["count"] for k, v in stats.items()} == {"preview.render": 1, "preview.histogram": 1}
-        assert all(v["last_ms"] > 0 for v in stats.values())
+    want = {"preview.render": 1, "preview.histogram": 1}
+    ttrace.enable(ranges=False)
+    try:
+        for trace, engine_cls, proc in ((ttrace, PreviewEngine, Processor(device="cpu")),
+                                        (jtrace, jpreview.PreviewEngine, jproc.Processor())):
+            trace.reset_stats()
+            _run(engine_cls, proc, frame, **params)
+            stats = trace.stage_stats()
+            assert {k: stats[k]["count"] for k in want if k in stats} == want
+            assert all(stats[k]["last_ms"] > 0 for k in want)
+            if trace is ttrace:
+                (tree,) = trace.requests()
+                names = [s.name for s in tree]
+                assert names[0] == "preview.frame" and {"process", "render", "finish"} <= set(names)
+                process = next(s for s in tree if s.name == "process")
+                render = next(s for s in tree if s.name == "preview.render")
+                assert process.parent == render.id and render.parent == tree[0].id
+    finally:
+        ttrace.enable(False)
+        ttrace.reset_stats()
