@@ -6,8 +6,9 @@
    versions and the TF32 flags; exits non-zero without a CUDA device;
 2. builds the hand-written kernels from ``raw2film_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
-3. checks each of the fourteen kernels against its plain PyTorch version on
-   the card, at small ragged shapes and at the shapes of the paths below,
+3. checks each of the fifteen kernels against its plain PyTorch version on
+   the card (K15, the fused path's exposure sample, against the host
+   estimate: the power mean within 2e-6 relative), at small ragged shapes and at the shapes of the paths below,
    and times it beside its bound (the larger of its bytes over 3.35 TB/s
    and its fp32 operations over 67 TFLOP/s) and, where one PyTorch call
    computes the same function, that call; K2 also at every odd tap length
@@ -134,15 +135,19 @@ SEED = 20261016
 # values below 4); halation is held to 1e-5 on exposure and 2e-5 on density
 # (the develop epilogue's log2/exp2 chain); the half-size decode selects and
 # averages two values, bit for bit; the grain applies as K2's epilogue.
+# K15's power mean is held relative to the host estimate's: float32 terms
+# (CUDA's powf against the host's) summed in float64 against numpy's
+# float32 pairwise sum.
 TOL = {
     "demosaic": 2e-6, "sep_rank": 1e-5, "print_encode": 1.0, "print_encode_float": 1e-4,
     "pyramid_down": 1e-6, "pyramid_up_rows": 2e-6, "halation": 1e-5, "halation_density": 2e-5,
     "half_size": 0.0, "pyramid_up": 2e-6, "grain_apply": 1e-5, "grain_apply_bw": 1e-5,
     "sep_rank_narrow": 1e-5, "grain_field": 1e-5, "conv_w": 1e-6, "conv_h": 1e-6,
+    "exposure_sample": 2e-6,
 }
 # name -> (the TPU kernel's number, source, the TPU kernel it replaces), in
 # the order of the TPU kernels. K4 is the K2 kernel on the shapes the TPU's
-# K2 declines (ops/sep_rank.py::tpu_declines).
+# K2 declines (ops/sep_rank.py::tpu_declines). K15 replaces a host pass.
 KERNELS = {
     "demosaic": ("K1", "raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_demosaic.py:191"),
     "sep_rank": ("K2", "raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:576"),
@@ -158,6 +163,8 @@ KERNELS = {
     "pyramid_up_rows": ("K12", "raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:277"),
     "pyramid_up": ("K13", "raw2film_tpu_torch/csrc/pyramid.cu", "raw2film_tpu/ops/pallas_pyramid.py:374"),
     "halation": ("K14", "raw2film_tpu_torch/csrc/halation.cu", "raw2film_tpu/ops/pallas_halation.py:239"),
+    "exposure_sample": ("K15", "raw2film_tpu_torch/csrc/demosaic.cu",
+                        "none: the fused path's host estimate (raw2film_tpu/pipeline/processor.py:106, :753)"),
 }
 # The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): device memory and
 # fp32 outside the tensor cores. A kernel's bound is the larger of its bytes
@@ -189,23 +196,25 @@ LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
 D2H_PER_RENDER = 0
 # Processor.process() of the DNG: (overrides of the benchmark settings,
 # launches per render, output shape). Every phase blurs the burn's small map
-# on K4 once.
+# on K4 once; every full-res phase (the fused path) estimates the exposure
+# on K15 once.
 HALF = (H // 2, W // 2, 3)
 PHASES = {
     "a": ({}, counts(half_size=1, sep_rank=2, sep_rank_narrow=1, print_encode=1), HALF),
-    "b": (dict(half_size=False, max_scale=None), LAUNCHES_ON, (H, W, 3)),
+    "b": (dict(half_size=False, max_scale=None), dict(LAUNCHES_ON, exposure_sample=1), (H, W, 3)),
     "c": (dict(sharpness=False),
           counts(half_size=1, sep_rank=1, sep_rank_narrow=1, grain_apply=1, print_encode=1), HALF),
     "d": (dict(grain=1),
           counts(half_size=1, sep_rank=2, sep_rank_narrow=1, grain_apply_bw=1, print_encode=1), HALF),
     "e": (
         dict(half_size=False, max_scale=None, halation_size=3.0),
-        counts(demosaic=1, pyramid_down=2, sep_rank=4, sep_rank_narrow=1, pyramid_up=2, print_encode=1),
+        counts(demosaic=1, pyramid_down=2, sep_rank=4, sep_rank_narrow=1, pyramid_up=2, print_encode=1,
+               exposure_sample=1),
         (H, W, 3),
     ),
     "f": (
         dict(half_size=False, max_scale=None, frame_height=23.9),
-        counts(demosaic=1, pyramid_down=1, sep_rank=3, sep_rank_narrow=1, print_encode=1),
+        counts(demosaic=1, pyramid_down=1, sep_rank=3, sep_rank_narrow=1, print_encode=1, exposure_sample=1),
         (5449, 8207, 3),
     ),
     # chroma NR: its chromaticity blur is one shared rank on K2
@@ -1046,6 +1055,46 @@ def check_half_size(device, full_hw) -> dict:
     }
 
 
+def check_exposure_sample(device, full_hw) -> dict:
+    """K15 against the host estimate (its plain version): the power mean
+    within TOL relative on small frames (odd and even, the general path and
+    the 16-byte one) of both dtypes and every phase, codes from below black
+    to above white; then the 45 MP frame, timed with CUDA events (the
+    launch, no fetch) beside its bytes bound, and the wrapper with its
+    8-byte fetch on the host clock."""
+    cam = np.array([[0.41, 0.36, 0.18], [0.21, 0.72, 0.07], [0.02, 0.12, 0.95]], np.float32)
+    factor = float(np.sqrt(4.0**2 / 100 / (1 / 125)) + 1.0)  # ISO 100, 1/125 s, f/4
+    g = torch.Generator(device=device).manual_seed(15)
+
+    def rel_err(x, pattern):
+        got = dm.exposure_power_mean(x, pattern, cam, NORM, factor)
+        return abs(got / plain(dm.exposure_power_mean, x, pattern, cam, NORM, factor) - 1.0)
+
+    for pattern in dm.PATTERNS:
+        for hw in ((37, 53), (42, 66), (40, 64)):
+            codes = torch.randint(0, 17000, hw, generator=g, device=device, dtype=torch.int32)
+            expect("exposure_sample", rel_err(codes.to(torch.uint16), pattern), TOL["exposure_sample"],
+                   f"u16 {hw[0]}x{hw[1]} {pattern} (relative)")
+            expect("exposure_sample", rel_err(codes.to(torch.float32) + 0.25, pattern), TOL["exposure_sample"],
+                   f"f32 {hw[0]}x{hw[1]} {pattern} (relative)")
+    codes = mosaic_codes(*full_hw, 3, device)
+    err = rel_err(codes, "RGGB")
+    expect("exposure_sample", err, TOL["exposure_sample"], f"u16 {full_hw[0]}x{full_hw[1]} (relative)")
+    n_i = (full_hw[0] // 2 + 1) // 2
+    fetch = [host_ms(lambda: dm.exposure_power_mean(codes, "RGGB", cam, NORM, factor), sync=False)[1]
+             for _ in range(10)]
+    return {
+        "max_rel_err": err,
+        "ms": med(lambda: dm.exposure_sum(codes, "RGGB", cam, NORM, factor), 20),
+        "plain_ms": med(lambda: plain(dm.exposure_power_mean, codes, "RGGB", cam, NORM, factor), 3),
+        "with_fetch_host_ms": statistics.median(fetch),
+        # rows 4i and 4i + 1 read whole (u16); per sample 4 normalizes, the
+        # green, the Y row (15 operations) and a powf, counted as one
+        **bound(n_i * 2 * full_hw[1] * 2, dm.exposure_samples(*full_hw) * 16),
+        "library_ms": None,
+    }
+
+
 def check_upsample(device, full_hw) -> dict:
     """Small ragged crops, then the /4 and /8 levels of the 45 MP frame back
     to full size (phase e's shapes), each timed beside F.interpolate; the
@@ -1434,11 +1483,11 @@ def time_processor(device, path: str, card: str) -> dict:
         add("a", "render_device", dev)
         add("a", "render_and_download", host)
         (fast, _), t = host_ms(lambda: proc._try_load_mosaic_impl(raw, fused_kw), sync=False)
-        add("b", "host_exposure_and_crop", t)
+        add("b", "prep_upload_exposure_crop", t)
         mosaic, norm, pattern, cam, gain, crop = fast
         dev, host = timed_render(lambda: render_chain_from_mosaic(
             mosaic, cam, bundle, cfg_b, SEED, pattern, gain, crop, norm, device=device))
-        add("b", "upload_and_render_device", dev)
+        add("b", "render_device", dev)
         add("b", "render_and_download", host)
         del xyz, staged
     for name in ("a", "b"):
@@ -2003,6 +2052,7 @@ def main() -> int:
     results["pyramid_down"], results["pyramid_up_rows"] = check_pyramid(device, (H, W))
     results["halation"] = check_halation(device, bundle, cfg)
     results["half_size"] = check_half_size(device, (H, W))
+    results["exposure_sample"] = check_exposure_sample(device, (H, W))
     results["pyramid_up"] = check_upsample(device, (H, W))
     results["grain_apply"], results["grain_apply_bw"] = check_grain_apply(device, (H, W), cfg)
     torch.cuda.empty_cache()

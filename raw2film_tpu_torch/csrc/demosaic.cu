@@ -1,5 +1,5 @@
-// K1: Malvar-He-Cutler demosaic with the input-transform epilogue, and
-// K11: the half-size decode.
+// K1: Malvar-He-Cutler demosaic with the input-transform epilogue,
+// K11: the half-size decode, and K15: the fused path's exposure sample.
 //
 // Replaces raw2film_tpu/ops/pallas_demosaic.py::demosaic_mhc_pallas (the
 // TPU kernel _demosaic_kernel), with the u16 normalize of
@@ -46,6 +46,25 @@
 // small frames; here each thread reads its cell by index and every shape is
 // served. The same u16 normalize prologue as K1. Bound: device memory, 2
 // bytes read (u16) and 3 bytes written per mosaic pixel.
+//
+// K15 exposure_sample replaces no TPU kernel: the JAX package, and the port
+// until it, estimated the fused path's exposure on the host
+// (pipeline/processor.py::_half_size_xyz and io/raw.py::calc_exposure: a
+// half-size XYZ decode of the whole frame, of which the power mean reads the
+// Y plane 2x subsampled). It computes the same sum from the mosaic already
+// on the device. Sample (i, j), i < ceil((H/2)/2), j < ceil((W/2)/2), is
+// the 2x2 cell at row 4i, column 4j, each site clip01((p - black) *
+// inv_range); R and B at their phase, G the mean of the two greens of an
+// RGGB or BGGR cell and the (1, 1) site of a GRBG or GBRG one (the host
+// decode's rule, not K11's); Y = c . (R, G, B) without FMA contraction, and
+// the term max(Y, 1e-9) ** e (e = 1 / factor, float32). Terms sum in
+// float64: per thread, a warp shuffle, a block sum into one partial per
+// block, then one warp adds the partials in a fixed order, so the sum is
+// the same on every run. Bound: device memory. Sampled rows 4i and 4i + 1
+// are read whole (half the mosaic: ~45 MB of the 45 MP u16 frame, ~13 us at
+// 3.35 TB/s), 16 bytes a thread along the row where the wrapper's vec_path
+// allows (two samples per u16 chunk, one per f32 chunk), else 4 scalar
+// loads a sample; 4 blocks of 256 threads an SM stride over the samples.
 #include "common.cuh"
 
 namespace {
@@ -260,7 +279,126 @@ __global__ void half_size_kernel(const T* __restrict__ mosaic, float* __restrict
   out[2 * plane + o] = b;
 }
 
+constexpr int EXPO_THREADS = 256;
+
+struct Expo {
+  float black, inv_range, c0, c1, c2, e;
+  int ry, rx;
+};
+
+__device__ __forceinline__ float unit(float p, const Expo& x) {
+  return fminf(fmaxf(__fmul_rn(__fsub_rn(p, x.black), x.inv_range), 0.0f), 1.0f);
+}
+
+// The term of the cell (a0 a1 / b0 b1): rows 4i and 4i + 1, columns 4j and
+// 4j + 1.
+__device__ __forceinline__ double expo_term(float a0, float a1, float b0, float b1, const Expo& x) {
+  a0 = unit(a0, x);
+  a1 = unit(a1, x);
+  b0 = unit(b0, x);
+  b1 = unit(b1, x);
+  const float r = x.ry ? (x.rx ? b1 : b0) : (x.rx ? a1 : a0);
+  const float b = x.ry ? (x.rx ? a0 : a1) : (x.rx ? b0 : b1);
+  const float g = x.ry == x.rx ? __fmul_rn(__fadd_rn(a1, b0), 0.5f) : b1;
+  const float y = __fadd_rn(__fadd_rn(__fmul_rn(x.c0, r), __fmul_rn(x.c1, g)), __fmul_rn(x.c2, b));
+  return static_cast<double>(powf(fmaxf(y, 1e-9f), x.e));
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// n_i x n_j samples; VEC: each item a 16-byte chunk of rows 4i and 4i + 1
+// (CW / 4 samples), else one sample. partial[blockIdx.x]: the block's sum.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(EXPO_THREADS)
+    exposure_sample_kernel(const T* __restrict__ mosaic, int W, int n_i, int n_j, Expo x,
+                           double* __restrict__ partial) {
+  constexpr int CW = 16 / sizeof(T);
+  const unsigned n_c = VEC ? n_j / (CW / 4) : n_j;  // items along a sampled row pair
+  const unsigned items = static_cast<unsigned>(n_i) * n_c;
+  double acc = 0.0;
+  for (unsigned t = blockIdx.x * EXPO_THREADS + threadIdx.x; t < items; t += gridDim.x * EXPO_THREADS) {
+    const unsigned i = t / n_c;
+    const unsigned c = t - i * n_c;
+    const T* a = mosaic + static_cast<size_t>(4 * i) * W;
+    if constexpr (VEC) {
+      float va[CW], vb[CW];
+      load16(a + c * CW, va);
+      load16(a + W + c * CW, vb);
+#pragma unroll
+      for (int s = 0; s < CW; s += 4) acc += expo_term(va[s], va[s + 1], vb[s], vb[s + 1], x);
+    } else {
+      a += 4 * c;
+      acc += expo_term(static_cast<float>(a[0]), static_cast<float>(a[1]),
+                       static_cast<float>(a[W]), static_cast<float>(a[W + 1]), x);
+    }
+  }
+  __shared__ double warps[EXPO_THREADS / 32];
+  acc = warp_sum(acc);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) warps[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    acc = warp_sum(lane < EXPO_THREADS / 32 ? warps[lane] : 0.0);
+    if (lane == 0) partial[blockIdx.x] = acc;
+  }
+}
+
+// One warp: work[0] = work[1] + ... + work[n], in a fixed order.
+__global__ void exposure_total_kernel(double* work, int n) {
+  double acc = 0.0;
+  for (int k = threadIdx.x; k < n; k += 32) acc += work[1 + k];
+  acc = warp_sum(acc);
+  if (threadIdx.x == 0) work[0] = acc;
+}
+
+template <typename T, bool VEC>
+void launch_exposure(const T* mosaic, int W, int n_i, int n_j, const Expo& x, double* work,
+                     int blocks, cudaStream_t s) {
+  exposure_sample_kernel<T, VEC><<<blocks, EXPO_THREADS, 0, s>>>(mosaic, W, n_i, n_j, x, work + 1);
+  exposure_total_kernel<<<1, 32, 0, s>>>(work, blocks);
+}
+
 }  // namespace
+
+// mosaic: (H, W) uint16 (is_u16=1) or float32, H, W >= 2; work: n_work + 1
+// doubles on the device, work[0] the sum on return of the stream's work.
+// (c0, c1, c2): the camera matrix's Y row; e: the power. vec: the 16-byte
+// path, which takes W a multiple of 8 (u16) or 4 (f32) and a 16-byte
+// aligned mosaic; 0: any shape.
+R2F_API int r2f_exposure_sample(const void* mosaic, int is_u16, int H, int W, int ry, int rx,
+                                float black, float inv_range, float c0, float c1, float c2,
+                                float e, double* work, int n_work, int vec, void* stream) {
+  const int n_i = (H / 2 + 1) / 2;
+  const int n_j = (W / 2 + 1) / 2;
+  if (H < 2 || W < 2 || n_work < 1 || ((ry | rx) & ~1) != 0 ||
+      static_cast<long long>(n_i) * n_j > 0x7fffffffLL ||
+      (vec && (W % (is_u16 ? 8 : 4) != 0 || (reinterpret_cast<uintptr_t>(mosaic) & 15) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Expo x{black, inv_range, c0, c1, c2, e, ry, rx};
+  // items: 16-byte chunks of the sampled row pairs, or samples
+  const long long items = static_cast<long long>(n_i) * (vec ? W / (is_u16 ? 8 : 4) : n_j);
+  const long long wanted = (items + EXPO_THREADS - 1) / EXPO_THREADS;
+  const int blocks = wanted < n_work ? static_cast<int>(wanted) : n_work;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_u16) {
+    const auto* src = static_cast<const uint16_t*>(mosaic);
+    if (vec)
+      launch_exposure<uint16_t, true>(src, W, n_i, n_j, x, work, blocks, s);
+    else
+      launch_exposure<uint16_t, false>(src, W, n_i, n_j, x, work, blocks, s);
+  } else {
+    const auto* src = static_cast<const float*>(mosaic);
+    if (vec)
+      launch_exposure<float, true>(src, W, n_i, n_j, x, work, blocks, s);
+    else
+      launch_exposure<float, false>(src, W, n_i, n_j, x, work, blocks, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // mosaic: (H, W) uint16 (is_u16=1) or float32; out: (3, H/2, W/2) float32.
 R2F_API int r2f_half_size(const void* mosaic, int is_u16, float* out, int H, int W,

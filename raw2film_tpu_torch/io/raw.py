@@ -21,6 +21,21 @@ from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.utils.trace import to_device, to_host
 
 
+def exif_factor(metadata: dict | None) -> float:
+    """The exposure estimate's power-mean exponent, sqrt(N^2 / ISO / t) + 1
+    from the EXIF f-number (4 without one), ISO and exposure time; 3 where
+    they are missing or unreadable."""
+    if metadata:
+        try:
+            fn = float(metadata.get("EXIF:FNumber") or 4.0)
+            iso = float(metadata["EXIF:ISO"])
+            t = float(metadata["EXIF:ExposureTime"])
+            return math.sqrt(fn**2 / iso / t) + 1.0
+        except (KeyError, TypeError, ValueError, ZeroDivisionError):
+            pass
+    return 3.0
+
+
 def calc_exposure(
     xyz: np.ndarray,
     ref_exposure: float = 0.18,
@@ -32,17 +47,7 @@ def calc_exposure(
     the JAX package's ``io/raw.py::calc_exposure``, whose module imports JAX;
     ``subsampled=True``: ``xyz`` already is that plane)."""
     lum = np.asarray(xyz) if subsampled else np.asarray(xyz)[1, ::2, ::2]
-    factor = 3.0
-    if metadata:
-        try:
-            fn = float(metadata.get("EXIF:FNumber") or 4.0)
-            iso = float(metadata["EXIF:ISO"])
-            t = float(metadata["EXIF:ExposureTime"])
-            factor = math.sqrt(fn**2 / iso / t) + 1.0
-        except (KeyError, TypeError, ValueError, ZeroDivisionError):
-            factor = 3.0
-    lum = np.maximum(lum, 1e-9)
-    avg = float(np.mean(lum ** (1.0 / factor)) ** factor)
+    avg = dm.power_mean(lum, exif_factor(metadata))
     return math.log2(ref_exposure / max(avg, 1e-9))
 
 

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "demosaic", "half_size", "pyramid_down", "sep_rank", "sep_rank_narrow", "pyramid_up_rows",
     "pyramid_up", "halation", "grain_apply", "grain_apply_bw", "grain_field", "conv_w", "conv_h",
-    "print_encode",
+    "print_encode", "exposure_sample",
 )
 
 
@@ -83,6 +83,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "r2f_demosaic": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P),
     "r2f_half_size": (_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "r2f_exposure_sample": (_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _I, _I, _P),
     "r2f_sep_rank": (_P, _P, _P, _P, _P, _P, _P),
     "r2f_hash_words": (_P, _P, _I, _I, _I, _I, _I, _U, _U, _P),
     "r2f_print_encode": (

@@ -10,6 +10,10 @@ The counterpart of ``raw2film_tpu/ops/demosaic.py``:
   grouped pair sums) in plain PyTorch;
 - :func:`half_size_decode` launches K11 (``csrc/demosaic.cu``, the port of
   ``pallas_pyramid.half_size_decode_pallas``), or :func:`half_size_plain`;
+- :func:`exposure_power_mean`, the fused path's exposure estimate,
+  launches K15 (``csrc/demosaic.cu``; it replaces no TPU kernel: the JAX
+  package estimates on the host) or runs the host estimate,
+  :func:`half_size_xyz` and :func:`power_mean`;
 - :func:`demosaic_bilinear` and :func:`demosaic_masked`, the X-Trans
   decode, run their depthwise convs as SVD ranks on K2, as
   ``depthwise_conv2d`` does on the TPU.
@@ -182,6 +186,90 @@ def half_size_decode(bayer: torch.Tensor, pattern: str = "RGGB", norm=None) -> t
     kb.check(err, "r2f_half_size")
     trace.count("launch.half_size")
     return out
+
+
+# ------------------------------------------------------------ K15
+
+# K15's grid: at most 4 blocks of 256 threads on each of the H100's 132 SMs,
+# each striding over the samples; then one warp sums the block partials in a
+# fixed order.
+EXPOSURE_BLOCKS = 4 * 132
+
+
+def half_size_xyz(mosaic: np.ndarray, pattern: str, cam_to_xyz: np.ndarray,
+                  black: float = 0.0, inv_range: float = 1.0) -> np.ndarray:
+    """Host half-size decode -> (3, H/2, W/2) XYZ, the fused path's sample
+    for the exposure estimate (the JAX Processor's ``_half_size_xyz``)."""
+    h2, w2 = mosaic.shape[0] // 2, mosaic.shape[1] // 2
+    m = mosaic[: h2 * 2, : w2 * 2]
+
+    def cell(y, x):
+        p = m[y::2, x::2].astype(np.float32)
+        return np.clip((p - black) * inv_range, 0.0, 1.0)
+
+    c00, c01, c10, c11 = cell(0, 0), cell(0, 1), cell(1, 0), cell(1, 1)
+    cells = {pattern[0]: c00, pattern[1]: c01, pattern[2]: c10, pattern[3]: c11}
+    greens = [c01 if pattern[1] == "G" else None, c10 if pattern[2] == "G" else None]
+    g = (
+        np.mean([x for x in greens if x is not None], axis=0)
+        if any(x is not None for x in greens)
+        else cells.get("G", c00)
+    )
+    rgb = np.stack([cells.get("R", g), g, cells.get("B", g)])
+    return np.einsum("ij,jhw->ihw", cam_to_xyz, rgb).astype(np.float32)
+
+
+def power_mean(lum: np.ndarray, factor: float) -> float:
+    """mean(max(lum, 1e-9) ** (1 / factor)) ** factor, in float32: the
+    exposure estimate's average (``io/raw.py::calc_exposure``)."""
+    lum = np.maximum(lum, 1e-9)
+    return float(np.mean(lum ** (1.0 / factor)) ** factor)
+
+
+def exposure_samples(h: int, w: int) -> int:
+    """How many values the estimate averages: the (H//2, W//2) half-size
+    frame subsampled 2x, ceil((H//2) / 2) x ceil((W//2) / 2)."""
+    return -(-(h // 2) // 2) * -(-(w // 2) // 2)
+
+
+def exposure_sum(mosaic: torch.Tensor, pattern: str, cam_to_xyz, norm, factor: float) -> torch.Tensor:
+    """K15 wrapper: (H, W) uint16 or float32 mosaic on the card -> (1,)
+    float64 on the card, the sum over the estimate's samples of
+    max(Y, 1e-9) ** (1 / factor), Y the second row of ``cam_to_xyz`` (host
+    3x3) times the sample's RGB as :func:`half_size_xyz` forms it. The
+    kernel's path follows :func:`vec_path`; it launches on the current
+    stream and does not wait."""
+    ry, rx = _phase(pattern)
+    kb.require(mosaic, "mosaic", (torch.uint16, torch.float32))
+    if mosaic.dim() != 2 or mosaic.shape[0] < 2 or mosaic.shape[1] < 2:
+        raise ValueError(f"mosaic: want (H, W) with H, W >= 2, got {tuple(mosaic.shape)}")
+    h, w = mosaic.shape
+    black, inv_range = _norm_pair(norm) or (0.0, 1.0)
+    c0, c1, c2 = (float(v) for v in np.asarray(cam_to_xyz, np.float32)[1])
+    work = torch.empty(EXPOSURE_BLOCKS + 1, dtype=torch.float64, device=mosaic.device)
+    err = kb.lib().r2f_exposure_sample(
+        mosaic.data_ptr(), int(mosaic.dtype == torch.uint16), h, w, ry, rx, black, inv_range,
+        c0, c1, c2, float(np.float32(1.0 / factor)), work.data_ptr(), EXPOSURE_BLOCKS,
+        int(vec_path(w, mosaic.dtype, mosaic.data_ptr())), kb.stream_ptr(mosaic),
+    )
+    kb.check(err, "r2f_exposure_sample")
+    trace.count("launch.exposure_sample")
+    return work[:1]
+
+
+def exposure_power_mean(mosaic: torch.Tensor, pattern: str, cam_to_xyz, norm, factor: float) -> float:
+    """The fused path's exposure average over the whole (H, W) mosaic, what
+    ``calc_exposure(half_size_xyz(...))`` averages: on the card, K15's
+    float64 sum (:func:`exposure_sum`), its 8 bytes fetched, over
+    :func:`exposure_samples`, to the power ``factor``; on the CPU, the host
+    estimate itself (:func:`half_size_xyz`, :func:`power_mean`). ``norm`` =
+    (black, inv_range)."""
+    if not kb.use_kernel(mosaic):
+        black, inv_range = _norm_pair(norm) or (0.0, 1.0)
+        xyz = half_size_xyz(trace.to_host(mosaic).numpy(), pattern, cam_to_xyz, black, inv_range)
+        return power_mean(xyz[1, ::2, ::2], factor)
+    total = trace.to_host(exposure_sum(mosaic, pattern, cam_to_xyz, norm, factor)).item()
+    return (total / exposure_samples(*mosaic.shape)) ** factor
 
 
 # ------------------------------------------------------------ bilinear

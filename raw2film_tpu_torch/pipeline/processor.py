@@ -5,9 +5,9 @@ parameter names and defaults, so settings and profile JSONs carry over. It
 takes one of two paths, as the JAX Processor does:
 
 - the fused path (full resolution, no geometry, lens profile or resize):
-  the uint16 mosaic goes to the device and ``render_chain_from_mosaic``
-  demosaics (K1) with the camera matrix and exposure folded into the
-  chain's input transform;
+  the uint16 mosaic goes to the device once, K15 estimates the exposure
+  on it, and ``render_chain_from_mosaic`` demosaics (K1) with the camera
+  matrix and exposure folded into the chain's input transform;
 - the staged path (the half-size default, and any geometry, lens
   correction or ``max_scale`` cap): ``io/raw.py`` decodes on the device
   (K11 or K1), the image makes a round trip through the host for the lens
@@ -46,7 +46,8 @@ from raw2film_tpu_torch.film import loader
 from raw2film_tpu_torch.film import stock as stock_mod
 from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.io import lens as lens_mod
-from raw2film_tpu_torch.io.raw import calc_exposure, raw_to_linear
+from raw2film_tpu_torch.io.raw import exif_factor, raw_to_linear
+from raw2film_tpu_torch.ops.demosaic import exposure_power_mean
 from raw2film_tpu_torch.ops.resize import resolution_scaling
 from raw2film_tpu_torch.pipeline import canvas, geometry
 from raw2film_tpu_torch.pipeline.render import (
@@ -137,10 +138,11 @@ def _staged_crop_window(h: int, w: int, aspect: float) -> tuple[slice, slice]:
     )
 
 
-def _mosaic_aspect_crop(mosaic: np.ndarray, aspect: float):
+def _mosaic_aspect_crop(mosaic, aspect: float):
     """An even-aligned superset of the staged crop window (Bayer phase kept,
-    4 px of demosaic context) and the inner (y0, x0, h, w) window to take
-    after the demosaic (None when the superset is the window)."""
+    4 px of demosaic context), contiguous (a numpy array, or a tensor cut on
+    its device), and the inner (y0, x0, h, w) window to take after the
+    demosaic (None when the superset is the window)."""
     h, w = mosaic.shape
     rows, cols = _staged_crop_window(h, w, aspect)
     ext = 4
@@ -151,34 +153,12 @@ def _mosaic_aspect_crop(mosaic: np.ndarray, aspect: float):
     y_hi = min(rows.stop + ext, h)
     x_hi = min(cols.stop + ext, w)
     sup = mosaic[y_lo:y_hi, x_lo:x_hi]
+    sup = sup.contiguous() if isinstance(sup, torch.Tensor) else np.ascontiguousarray(sup)
     dy, dx = rows.start - y_lo, cols.start - x_lo
     ch, cw = rows.stop - rows.start, cols.stop - cols.start
-    if (dy, dx) == (0, 0) and sup.shape == (ch, cw):
-        return np.ascontiguousarray(sup), None
-    return np.ascontiguousarray(sup), (dy, dx, ch, cw)
-
-
-def _half_size_xyz(mosaic: np.ndarray, pattern: str, cam_to_xyz: np.ndarray,
-                   black: float = 0.0, inv_range: float = 1.0) -> np.ndarray:
-    """Host half-size decode -> (3, H/2, W/2) XYZ, the fused path's sample
-    for the exposure estimate."""
-    h2, w2 = mosaic.shape[0] // 2, mosaic.shape[1] // 2
-    m = mosaic[: h2 * 2, : w2 * 2]
-
-    def cell(y, x):
-        p = m[y::2, x::2].astype(np.float32)
-        return np.clip((p - black) * inv_range, 0.0, 1.0)
-
-    c00, c01, c10, c11 = cell(0, 0), cell(0, 1), cell(1, 0), cell(1, 1)
-    cells = {pattern[0]: c00, pattern[1]: c01, pattern[2]: c10, pattern[3]: c11}
-    greens = [c01 if pattern[1] == "G" else None, c10 if pattern[2] == "G" else None]
-    g = (
-        np.mean([x for x in greens if x is not None], axis=0)
-        if any(x is not None for x in greens)
-        else cells.get("G", c00)
-    )
-    rgb = np.stack([cells.get("R", g), g, cells.get("B", g)])
-    return np.einsum("ij,jhw->ihw", cam_to_xyz, rgb).astype(np.float32)
+    if (dy, dx) == (0, 0) and tuple(sup.shape) == (ch, cw):
+        return sup, None
+    return sup, (dy, dx, ch, cw)
 
 
 def _file_key(src):
@@ -515,11 +495,13 @@ class Processor:
         return result
 
     def _try_load_mosaic_impl(self, src, load_kw: dict):
-        """Fused-path eligibility and host preparation: ((mosaic, norm,
-        pattern, cam_to_xyz, exposure gain, crop) | None, the parsed
+        """Fused-path eligibility and preparation: ((mosaic on the device,
+        norm, pattern, cam_to_xyz, exposure gain, crop) | None, the parsed
         RawImage | None). An ineligible parsed file is handed back so the
         staged path does not parse it again. Past the eligibility checks,
-        the span ``prep``, with ``prep.read`` and ``prep.exposure``."""
+        the span ``prep``, with ``prep.read``, ``prep.upload`` (the whole
+        frame, once) and ``prep.exposure`` (K15 on the card); the aspect
+        crop is cut on the device."""
         if isinstance(src, np.ndarray):
             return None, None
         if load_kw.get("half_size", True):
@@ -566,17 +548,16 @@ class Processor:
                 if raw.color_matrix is not None
                 else np.eye(3)
             ).astype(np.float32)
+            with stage_timer("prep.upload"):
+                mosaic = to_device(mosaic_u16, self.device)
             # The staged path estimates exposure on the whole decoded frame,
-            # before the aspect crop; so does this.
-            with stage_timer("prep.exposure"):
-                gain = np.float32(2.0 ** calc_exposure(
-                    _half_size_xyz(raw.data, raw.cfa_pattern, cam, black=float(raw.black_level),
-                                   inv_range=float(inv_range)),
-                    metadata=raw.metadata,
-                ))
+            # before the aspect crop; so does this, on the device (K15).
+            with stage_timer("prep.exposure", device=mosaic):
+                avg = exposure_power_mean(mosaic, raw.cfa_pattern, cam, norm, exif_factor(raw.metadata))
+                gain = np.float32(2.0 ** math.log2(0.18 / max(avg, 1e-9)))  # calc_exposure's stops
             fw = float(load_kw.get("frame_width", 36.0))
             fh = float(load_kw.get("frame_height", 24.0))
-            mosaic, crop = _mosaic_aspect_crop(mosaic_u16, fw / fh)
+            mosaic, crop = _mosaic_aspect_crop(mosaic, fw / fh)
             return (mosaic, norm, raw.cfa_pattern, cam, gain, crop), raw
 
     # ---------------------------------------------------------- batch

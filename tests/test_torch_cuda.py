@@ -344,6 +344,31 @@ def test_half_size_kernel(cuda, pattern, dtype):
     assert torch.equal(got, _plain(dm.half_size_decode, x, pattern, norm))
 
 
+# K15's cases: the 45 MP frame (16-byte path), small odd and even frames,
+# and an unaligned view of a frame whose width takes the 16-byte path
+# (the general path, by the wrapper's vec_path).
+EXPOSURE_CASES = [((5472, 8208), 0), ((41, 67), 0), ((42, 66), 0), ((37, 80), 0), ((2, 2), 0), ((40, 64), 1)]
+
+
+@pytest.mark.parametrize("dtype", ["u16", "f32"])
+@pytest.mark.parametrize("pattern", list(dm.PATTERNS))
+def test_exposure_sample_kernel(cuda, pattern, dtype):
+    """K15 against the host estimate (its plain version): the power mean
+    within 2e-6 relative, one launch a call; the cam matrix's Y row and a
+    power of 1 / 5.47 (ISO 100, 1/125 s, f/4)."""
+    cam = np.array([[0.41, 0.36, 0.18], [0.21, 0.72, 0.07], [0.02, 0.12, 0.95]], np.float32)
+    norm = (512.0, 1.0 / 23488.0)
+    factor = float(np.sqrt(4.0**2 / 100 / (1 / 125)) + 1.0)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    for (h, w), offset in EXPOSURE_CASES:
+        # codes from below black to above white: clipped sites at both ends
+        codes = torch.rand((h * w + offset,), generator=g, device=cuda) * 26000.0 + 200.0
+        x = (codes.to(torch.int32).to(torch.uint16) if dtype == "u16" else codes)[offset:].view(h, w)
+        got = _launched("exposure_sample", dm.exposure_power_mean, x, pattern, cam, norm, factor)
+        want = _plain(dm.exposure_power_mean, x, pattern, cam, norm, factor)
+        assert abs(got / want - 1.0) <= 2e-6, ((h, w), offset, got, want)
+
+
 @pytest.mark.parametrize("f,out_hw", [(4, (41, 115)), (8, (80, 96)), (3, None)])
 def test_upsample_kernel(cuda, f, out_hw):
     x = torch.rand((3, 11, 29), device=cuda) * 3.0

@@ -651,6 +651,35 @@ def test_demosaic_launch(fake_launch, dtype, w, offset, norm):
     assert a1[11] == int(vec) and vec == (offset == 0 and w % (8 if dtype == torch.uint16 else 4) == 0)
 
 
+@pytest.mark.parametrize("pattern", ["RGGB", "GRBG", "GBRG", "BGGR"])
+@pytest.mark.parametrize(
+    "dtype,h,w,offset", [(torch.uint16, 6, 8208, 0), (torch.uint16, 41, 67, 0), (torch.uint16, 6, 64, 1),
+                         (torch.float32, 6, 68, 0), (torch.float32, 6, 66, 0), (torch.float32, 6, 64, 2)],
+)
+def test_exposure_sample_launch(fake_launch, pattern, dtype, h, w, offset):
+    """K15's launch: the Bayer phase, the normalize pair and the cam
+    matrix's Y row in float32, the power 1 / factor in float32, the work
+    buffer of EXPOSURE_BLOCKS partials and the sum, and the path of
+    vec_path."""
+    from raw2film_tpu_torch.ops import demosaic
+
+    base = torch.zeros(h * w + offset, dtype=dtype)
+    mosaic = base[offset:].view(h, w)
+    cam = np.array([[0.9, 0.2, -0.1], [0.1, 1.1, -0.2], [-0.05, 0.15, 0.95]])
+    total = demosaic.exposure_sum(mosaic, pattern, cam, (512.0, 1.0 / 23488.0), 5.47)
+    (name, args), = fake_launch.calls
+    assert name == "r2f_exposure_sample" and kb.launches["exposure_sample"] == 1
+    assert args[:6] == [mosaic.data_ptr(), int(dtype == torch.uint16), h, w, *demosaic.PATTERNS[pattern]]
+    assert args[6:8] == [512.0, np.float32(1.0 / 23488.0)]
+    assert args[8:11] == [np.float32(v) for v in (0.1, 1.1, -0.2)] and args[11] == np.float32(1.0 / 5.47)
+    assert args[12] == total.data_ptr() and args[13] == demosaic.EXPOSURE_BLOCKS
+    assert total.dtype == torch.float64 and total.shape == (1,)
+    assert total._base.numel() == demosaic.EXPOSURE_BLOCKS + 1
+    vec = demosaic.vec_path(w, dtype, mosaic.data_ptr())
+    assert args[14] == int(vec) and vec == (offset == 0 and w % (8 if dtype == torch.uint16 else 4) == 0)
+    assert demosaic.exposure_samples(h, w) == -(-(h // 2) // 2) * -(-(w // 2) // 2)
+
+
 @pytest.mark.parametrize("kind", ["host", "tensor"])
 def test_print_encode_takes_the_host_print_vec(fake_launch, kind):
     """K3's 61 parameters go to the kernel by value: a host array (the

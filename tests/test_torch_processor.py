@@ -26,6 +26,7 @@ from raw2film_tpu.pipeline import processor as jproc
 from raw2film_tpu.pipeline.batch import BatchRunner
 from raw2film_tpu.pipeline.preview import PreviewEngine
 from raw2film_tpu_torch import Processor
+from raw2film_tpu_torch.ops import demosaic as tdm
 from raw2film_tpu_torch.parallel.mesh import make_mesh
 from raw2film_tpu_torch.pipeline import processor as tproc
 from test_golden import CASES as GOLDEN_CASES
@@ -217,7 +218,7 @@ def test_half_size_xyz_matches_jax(pattern):
     m = np.random.default_rng(27).integers(200, 16000, (41, 67)).astype(np.uint16)
     cam = np.linalg.inv(np.asarray(XYZ_TO_REC709)).astype(np.float32)
     args = (m, pattern, cam, 256.0, 1.0 / 15000.0)
-    np.testing.assert_array_equal(tproc._half_size_xyz(*args), jproc._half_size_xyz(*args))
+    np.testing.assert_array_equal(tdm.half_size_xyz(*args), jproc._half_size_xyz(*args))
 
 
 def test_cache_follows_the_file(tmp_path):

@@ -4,7 +4,8 @@ stage statistics cover every call since the reset, recording off leaves no
 trace, recording on gives ``process()`` one tree of the layers it crossed,
 the copy helpers count only crossings between the host and a device, and
 the launch counts are the ``launch.<kernel>`` counters. On the card
-(``-m cuda``), the copy counters of a fused ``process()`` match its bytes.
+(``-m cuda``), the copy counters of a fused ``process()`` match its bytes
+and K15 runs once; a cached repeat copies nothing up.
 
 Every test leaves recording off and the log empty (``_recording_off``)."""
 
@@ -288,18 +289,30 @@ def test_copy_counters_of_a_fused_process_on_the_card(tmp_path):
     src = str(tmp_path / "f.dng")
     write_dng(src, _mosaic(h, w, 3), white_level=60000)
     proc = Processor(device="cuda")
-    proc.process(src, **STOCKS, seed=1, **FUSED)  # builds and loads the kernels
+    proc.process(src, **STOCKS, seed=1, **FUSED)  # builds and loads the kernels; caches the mosaic
     torch.cuda.synchronize()
-    trace.enable(ranges=False)
-    out = proc.process(src, **STOCKS, seed=2, **FUSED)
-    torch.cuda.synchronize()
-    (tree,) = trace.requests()
-    counts = {}
-    for s in tree:
-        for k, v in (s.counts or {}).items():
-            counts[k] = counts.get(k, 0) + v
-    assert out.shape == (h, w, 3)
-    assert counts["copy.h2d.bytes"] >= h * w * 2  # the uint16 mosaic
-    assert counts["copy.d2h.bytes"] == h * w * 3 and counts["copy.d2h.n"] == 1  # the uint8 frame only
+
+    def traced_counts(**kw):
+        trace.reset_stats()
+        trace.enable(ranges=False)
+        out = proc.process(src, **STOCKS, **FUSED, **kw)
+        torch.cuda.synchronize()
+        (tree,) = trace.requests()
+        counts = {}
+        for s in tree:
+            for k, v in (s.counts or {}).items():
+                counts[k] = counts.get(k, 0) + v
+        assert out.shape == (h, w, 3)
+        return counts, tree
+
+    counts, tree = traced_counts(seed=2, cache=False)  # the fused prep runs, as in an export
+    assert counts["copy.h2d.bytes"] == h * w * 2  # the uint16 mosaic, once
+    # the uint8 frame and K15's float64 sum
+    assert counts["copy.d2h.bytes"] == h * w * 3 + 8 and counts["copy.d2h.n"] == 2
+    assert counts["launch.exposure_sample"] == 1
     kernels = [s for s in tree if s.name.startswith("kernel.")]
     assert kernels and all(s.device_ms() > 0 for s in kernels)
+    # the mosaic cached by the first call stays on the device: nothing goes up
+    counts, _ = traced_counts(seed=3)
+    assert "copy.h2d.bytes" not in counts and "launch.exposure_sample" not in counts
+    assert counts["copy.d2h.bytes"] == h * w * 3
