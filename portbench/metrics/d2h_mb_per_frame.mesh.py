@@ -1,0 +1,13 @@
+"""The program's counter ``copy.d2h.bytes`` per frame of the window's
+requests (the counter ``mesh.frames``), in MB (1e6 bytes): what each frame
+copied from a card to the host."""
+
+from portbench import program
+
+program.record()
+
+
+def read(run):
+    frames = program.counted(run, "mesh.frames")
+    n = program.counted(run, "copy.d2h.bytes")
+    return None if not frames or n is None else n / frames / 1e6

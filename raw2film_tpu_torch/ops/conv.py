@@ -22,7 +22,7 @@ import torch
 from raw2film_tpu_torch.utils import trace
 
 # Host-built resampling matrices kept on their device (:func:`device_matrix`):
-# at most this many, each a few MB at 45 MP (the burn's four: 7 MB).
+# at most this many per device, each a few MB at 45 MP (the burn's four: 7 MB).
 MATRIX_CACHE_SIZE = 16
 _matrix_lock = threading.Lock()
 _device_matrices: dict = {}
@@ -86,17 +86,19 @@ def device_matrix(key, build, device) -> torch.Tensor:
     takes it as it is: ``torch.tensor`` of a transposed view keeps its
     strides), built and uploaded once per ``key`` and device, so a render
     makes no copy of it. Read-only by contract: callers only read it. At
-    most :data:`MATRIX_CACHE_SIZE` are kept, the oldest dropped first; every
-    reader runs on the current stream, so a dropped matrix is never in use
-    on another."""
+    most :data:`MATRIX_CACHE_SIZE` are kept per device, the device's oldest
+    dropped first, so frames rendering on several devices at once do not
+    evict each other's; every reader runs on the current stream, so a
+    dropped matrix is never in use on another."""
     dkey = (key, str(torch.device(device)))
     hit = _device_matrices.get(dkey)
     if hit is not None:
         return hit
     mat = trace.to_device(np.ascontiguousarray(build(), np.float32), device, copy=True)
     with _matrix_lock:
-        if len(_device_matrices) >= MATRIX_CACHE_SIZE:
-            _device_matrices.pop(next(iter(_device_matrices)))
+        mine = [k for k in _device_matrices if k[1] == dkey[1]]
+        if len(mine) >= MATRIX_CACHE_SIZE:
+            _device_matrices.pop(mine[0])
         _device_matrices[dkey] = mat
     return mat
 

@@ -20,6 +20,14 @@ virtual CPU devices), and its shards then run one after another.
   ``grain_row_offset`` and ``burn_ref_hw``), so interior seams match the
   unsharded render.
 
+``Processor.process_batch`` on a mesh with no space axis uses it only for
+its batch rows: one host thread a row with the row's device current
+(:func:`make_current`) renders that row's images from file to uint8 on
+that device, and nothing crosses between devices. With a space axis it
+renders through :func:`sharded_batch_render`: the images are decoded on
+the Processor's device and each shard is copied to its device and back
+(counted as ``copy.d2d``).
+
 Not ported: the ``space_mode="spmd"`` path (XLA's SPMD partitioner with the
 XLA conv forms, ROADMAP.md "Not to port"); it raises ValueError.
 """
@@ -34,7 +42,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.pipeline.render import RenderConfig, bundle_to, render_chain
-from raw2film_tpu_torch.utils.trace import to_device
+from raw2film_tpu_torch.utils.trace import count, to_device
 
 
 @dataclass(frozen=True)
@@ -78,9 +86,9 @@ def make_mesh(
     return Mesh(tuple(tuple(devices[r * space : (r + 1) * space]) for r in range(batch)))
 
 
-def _on(device):
-    """The context that makes ``device`` current (the kernels launch on the
-    current device's stream)."""
+def make_current(device):
+    """The context that makes ``device`` current on this thread (the kernels
+    launch on the current device's stream)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
@@ -167,7 +175,7 @@ def sharded_batch_render(mesh: Mesh, cfg: RenderConfig, space_mode: str = "halo"
         halo = space_halo_rows(cfg, h, w) if space > 1 else 0
         for i in range(b):
             for s, dev in enumerate(mesh.devices[i % batch]):
-                with _on(dev):
+                with make_current(dev):
                     if space == 1:
                         res = render_chain(to_device(xyz[i], dev), on_device(bundle, dev), cfg, seeds[i])
                     else:
@@ -177,7 +185,11 @@ def sharded_batch_render(mesh: Mesh, cfg: RenderConfig, space_mode: str = "halo"
                         res = render_chain(
                             slab, on_device(bundle, dev), cfg, seeds[i], lo, (h, w)
                         )[:, halo : halo + h_loc]
-                out[i, :, s * h_loc : (s + 1) * h_loc].copy_(res)
+                dst = out[i, :, s * h_loc : (s + 1) * h_loc]
+                dst.copy_(res)
+                if dst.device != res.device:
+                    count("copy.d2d.n")
+                    count("copy.d2d.bytes", res.numel() * res.element_size())
         return out
 
     return fn

@@ -24,8 +24,10 @@ LUT on the host (``io/icc.py::bake_output_cp``) and uploaded once per
 transform object; the render applies it before the 8-bit rounding.
 
 ``process_batch(mesh=...)`` renders on a device mesh
-(``parallel/mesh.py``): every image staged, grouped by shape, sharded over
-the mesh's batch and space axes.
+(``parallel/mesh.py``). On a mesh with no space axis each batch row's
+device does what ``process()`` does for its images, driven by a host thread
+of its own, so the rows' reads and preps overlap; with a space axis every
+image is staged, grouped by shape and sharded over both axes.
 
 Not ported here: the TPU's scoped-VMEM retry ladder and the JIT cache (the
 port compiles nothing per shape).
@@ -36,6 +38,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,6 +60,7 @@ from raw2film_tpu_torch.pipeline.render import (
     render_chain,
     render_chain_from_mosaic,
 )
+from raw2film_tpu_torch.utils import trace
 from raw2film_tpu_torch.utils.trace import count, stage_timer, to_device, to_host
 
 MAX_SCALE_DEFAULT = 400.0  # px/mm preview cap
@@ -207,6 +212,7 @@ class Processor:
         self._mosaic_cache_key = self._mosaic_cache = None
         self._bundle_key = self._bundle = None
         self._icc_cache: dict = {}
+        self._rows: dict = {}  # (batch row, device) -> the row's Processor (process_batch on a mesh)
         self.last_metadata: dict = {}
 
     def register_lens(self, name: str) -> bool:
@@ -423,11 +429,12 @@ class Processor:
         return bundle, dataclasses.replace(cfg, icc=True)
 
     def _render(self, src, negative_film, print_film, load_kw, merged, key, cache, fused,
-                icc, finish_kw) -> np.ndarray:
+                icc, finish_kw, span: str = "process") -> np.ndarray:
         """One image through the fused or the staged path, then _finish: the
-        request span ``process`` (``process()``, and each image of
-        ``process_batch`` without a mesh)."""
-        with stage_timer("process"):
+        span ``span``, a request root for ``process()`` and each image of
+        ``process_batch`` without a mesh (``process``), and a batch row's
+        ``mesh.frame`` under the batch's root."""
+        with stage_timer(span):
             fast = parsed = None
             if fused:
                 fast, parsed = self._try_load_mosaic(src, load_kw, cache=cache)
@@ -567,15 +574,24 @@ class Processor:
         """Render many images. Image i takes the grain key
         fold_in(PRNGKey(seed), i), as in the JAX Processor, so image 0
         equals ``process(srcs[0], seed=seed)``. An ICC transform is baked
-        and attached once for the batch.
+        and attached once for the batch (once per batch row on a mesh with
+        no space axis).
 
         Without a mesh the images render one at a time on this Processor's
-        device. With a mesh (``parallel/mesh.py::make_mesh``) every image
-        takes the staged path (decoded on this device, then held on the
-        host); images of one shape are stacked in groups of at least
-        ``mesh.shape["batch"]`` (a short group padded by repeating its
-        images, the padding dropped after the render) and rendered by
-        ``sharded_batch_render``; finishing stays per image."""
+        device. A mesh (``parallel/mesh.py::make_mesh``) makes the batch one
+        request, the span ``batch``, counting ``mesh.frames`` once an image:
+
+        - with no space axis (:meth:`_render_rows`): image i goes to batch
+          row ``i % batch``, whose device renders it as ``process()`` would
+          (the fused or the staged path, by the same test), bit for bit;
+          one host thread a row, so the rows overlap; nothing crosses from
+          one device to another;
+        - with a space axis (:meth:`_render_on_mesh`) every image takes the
+          staged path (decoded on this device, then held on the host);
+          images of one shape are stacked in groups of at least
+          ``mesh.shape["batch"]`` (a short group padded by repeating its
+          images, the padding dropped after the render) and rendered by
+          ``sharded_batch_render``; finishing stays per image."""
         negative_film = _resolve_stock(negative_film)
         print_film = _resolve_stock(params.pop("print_film", None))
         load_kw = {k: params[k] for k in _LOAD_KEYS if k in params}
@@ -589,27 +605,95 @@ class Processor:
         finish_kw = {k: params.get(k, d) for k, d in
                      (("canvas_mode", "No"), ("canvas_scale", 1.0), ("canvas_ratio", 1.0))}
         base = prng_key(seed)
-        icc = self._icc_arrays(params.get("icc_transform"))
+        fused = bool(params.get("fused_decode", True))
         if mesh is None:
+            icc = self._icc_arrays(params.get("icc_transform"))
             return [
                 self._render(
                     src, negative_film, print_film, load_kw, merged, fold_in(base, idx), False,
-                    bool(params.get("fused_decode", True)), icc, finish_kw,
+                    fused, icc, finish_kw,
                 )
                 for idx, src in enumerate(srcs)
             ]
-        return self._render_on_mesh(
-            mesh, srcs, negative_film, print_film, load_kw, merged, base, icc, finish_kw
-        )
+        with stage_timer("batch"):
+            if mesh.shape["space"] == 1:
+                return self._render_rows(
+                    mesh, srcs, negative_film, print_film, load_kw, merged, base, fused,
+                    params.get("icc_transform"), finish_kw,
+                )
+            return self._render_on_mesh(
+                mesh, srcs, negative_film, print_film, load_kw, merged, base,
+                self._icc_arrays(params.get("icc_transform")), finish_kw,
+            )
+
+    def _row(self, r: int, device) -> Processor:
+        """Batch row r's Processor on ``device``, kept across batches: its
+        bundle, ICC factors and metadata belong to its own thread. It shares
+        this Processor's cameras and lenses."""
+        key = (r, str(device))
+        row = self._rows.get(key)
+        if row is None:
+            row = self._rows[key] = Processor(device=device)
+            row.cameras, row.lenses = self.cameras, self.lenses
+        return row
+
+    def _render_rows(self, mesh, srcs, negative_film, print_film, load_kw, merged, base, fused,
+                     icc_transform, finish_kw) -> list[np.ndarray]:
+        """process_batch on a mesh with no space axis: one host thread a batch
+        row, with the row's device current, renders images r, r + batch, ...
+        through :meth:`_render` of the row's Processor (the span
+        ``mesh.frame``, adopted into the batch's tree). A failing image stops
+        every row before its next image; once every thread has ended, the
+        error of the first row that failed is raised."""
+        from raw2film_tpu_torch.parallel.mesh import make_current
+
+        per = mesh.shape["batch"]
+        rows = [self._row(r, devs[0]) for r, devs in enumerate(mesh.devices)]
+        results: list = [None] * len(srcs)
+        stop = threading.Event()
+        root = trace.current()
+
+        def run_row(r: int) -> None:
+            row = rows[r]
+            try:
+                with make_current(row.device), trace.adopted(root):
+                    icc = row._icc_arrays(icc_transform)
+                    for idx in range(r, len(srcs), per):
+                        if stop.is_set():
+                            return
+                        count("mesh.frames")
+                        results[idx] = row._render(
+                            srcs[idx], negative_film, print_film, load_kw, merged,
+                            fold_in(base, idx), False, fused, icc, finish_kw, span="mesh.frame",
+                        )
+            except BaseException:
+                stop.set()
+                raise
+
+        with ThreadPoolExecutor(max_workers=per, thread_name_prefix="mesh-row") as pool:
+            futures = [pool.submit(run_row, r) for r in range(min(per, len(srcs)))]
+            try:
+                for f in futures:
+                    f.exception()  # waits; a failed row has set ``stop``
+            finally:
+                stop.set()  # an interrupt here stops the rows too
+        errors = [f.exception() for f in futures if f.exception() is not None]
+        if errors:
+            raise errors[0]
+        if srcs:
+            self.last_metadata = dict(rows[(len(srcs) - 1) % per].last_metadata)
+        return results
 
     def _render_on_mesh(self, mesh, srcs, negative_film, print_film, load_kw, merged, base,
                         icc, finish_kw) -> list[np.ndarray]:
-        """process_batch over a mesh: decode and bucket by shape, render each
-        group with ``sharded_batch_render``, finish per image."""
+        """process_batch over a mesh with a space axis, staged: decode and
+        bucket by shape, render each group with ``sharded_batch_render``,
+        finish per image."""
         from raw2film_tpu_torch.parallel.mesh import sharded_batch_render
 
         buckets: dict = {}
         for idx, src in enumerate(srcs):
+            count("mesh.frames")
             xyz, orig_resolution, meta = self.load_image(src, cache=False, **load_kw)
             self.last_metadata = dict(meta or {})
             # held on the host, as the JAX Processor holds its decoded

@@ -2,10 +2,11 @@
 counterpart of ``raw2film_tpu/utils/trace.py``).
 
 Recording is off by default. Off, a span costs one flag check (no clock
-read, no profiler range, no allocation) and :func:`count` one dict add. It
-turns on with :func:`enable`, or with ``RAW2FILM_TRACE`` set to a non-zero
-value when this module is imported; the CLI's ``--trace`` calls
-:func:`enable` and prints :func:`summary` at the end of its run.
+read, no profiler range, no allocation) and :func:`count` one dict add
+under a lock. It turns on with :func:`enable`, or with ``RAW2FILM_TRACE``
+set to a non-zero value when this module is imported; the CLI's
+``--trace`` calls :func:`enable` and prints :func:`summary` at the end of
+its run.
 
 While recording:
 
@@ -13,26 +14,32 @@ While recording:
   :class:`Span`: its name, its start and end on ``time.perf_counter_ns()``,
   the id of the span open around it on its thread, and a request id. A span
   opened while none is open on its thread is a request root and takes a new
-  request id; its descendants share it. Given a CUDA tensor as ``device``,
-  a span also records a CUDA event pair on that device's current stream
-  (unless ``enable(events=False)``), read only when asked
+  request id; its descendants share it. A worker thread that runs part of a
+  request opens its spans inside :func:`adopted` with the span that handed
+  it the work (:func:`current` on the handing thread), so they join that
+  request's tree instead of starting their own. Given a CUDA tensor as
+  ``device``, a span also records a CUDA event pair on that device's
+  current stream (unless ``enable(events=False)``), read only when asked
   (:meth:`Span.device_ms`): a span never waits on the device. With
   profiler ranges on (the default), a span nests
   ``torch.profiler.record_function("r2f." + name)``, which places it on a
   ``torch.profiler`` trace beside the device's operations.
 - :func:`count` adds to the innermost open span's counts as well as to the
-  running totals, so each request's tree carries its own counts.
+  running totals, so each request's tree carries its own counts. It takes
+  a lock, so threads counting at once lose nothing.
 
 The log keeps every span until :func:`reset_stats`. The running totals
 (:data:`COUNTS`) count whether or not recording is on: kernel launches
 (``launch.<kernel>``, which ``kernels/build.py::launches`` shows by kernel)
-and the copies between the host and a device made by :func:`to_host` and
-:func:`to_device` (``copy.d2h.n``, ``copy.d2h.bytes``, ``copy.h2d.n``,
-``copy.h2d.bytes``).
+and the copies made by :func:`to_host` and :func:`to_device`: between the
+host and a device (``copy.d2h.n``, ``copy.d2h.bytes``, ``copy.h2d.n``,
+``copy.h2d.bytes``) and from one device to another (``copy.d2d.n``,
+``copy.d2d.bytes``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import threading
@@ -47,6 +54,7 @@ _EVENTS = True
 COUNTS: dict[str, int] = {}  # running totals; cleared in place only (kernels/build.py views it)
 _LOG: list = []  # every span recorded since the last reset, in the order they opened
 _OPEN = threading.local()  # .stack: the spans open on this thread
+_COUNT_LOCK = threading.Lock()  # count()'s read-modify-write of COUNTS and a span's counts
 _SPAN_IDS = itertools.count(1)
 _REQUEST_IDS = itertools.count(1)
 
@@ -168,17 +176,44 @@ def stage_timer(name: str, device=None, start_ns: int | None = None):
     return Span(name, device, start_ns)
 
 
+def current() -> Span | None:
+    """The innermost span open on this thread (None while none is, which
+    recording off always gives): what a thread hands to its workers for
+    :func:`adopted`."""
+    stack = getattr(_OPEN, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def adopted(span: Span | None):
+    """Open this thread's spans under ``span``, a span open on the thread
+    that handed it the work: they take ``span``'s request, so the work done
+    for one request on several threads is one tree. ``span`` stays open on
+    its own thread and is not closed here; None adopts nothing."""
+    if span is None:
+        yield
+        return
+    stack = _stack()
+    stack.append(span)
+    try:
+        yield
+    finally:
+        stack.remove(span)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the running total ``name`` and, while recording, to the
-    innermost span open on this thread."""
-    COUNTS[name] = COUNTS.get(name, 0) + n
-    if _RECORDING:
-        stack = getattr(_OPEN, "stack", None)
-        if stack:
-            top = stack[-1]
-            if top.counts is None:
-                top.counts = {}
-            top.counts[name] = top.counts.get(name, 0) + n
+    innermost span open on this thread (an adopted span may be open on
+    another thread too, hence the lock)."""
+    with _COUNT_LOCK:
+        COUNTS[name] = COUNTS.get(name, 0) + n
+        if _RECORDING:
+            stack = getattr(_OPEN, "stack", None)
+            if stack:
+                top = stack[-1]
+                if top.counts is None:
+                    top.counts = {}
+                top.counts[name] = top.counts.get(name, 0) + n
 
 
 def on_host(t: torch.Tensor) -> bool:
@@ -198,10 +233,16 @@ def to_device(x, device, dtype=None, copy: bool = False) -> torch.Tensor:
     """``x`` (a tensor, or what ``torch.as_tensor`` takes) on ``device`` as
     ``dtype``: ``torch.as_tensor`` (a tensor's ``.to``), or with ``copy``
     always a new tensor (``torch.tensor``). Counted as a host-to-device copy
-    of the result's bytes when ``x`` is on the host and ``device`` is not."""
+    of the result's bytes when ``x`` is on the host and ``device`` is not,
+    and as a device-to-device copy when ``x`` is on another device."""
     if isinstance(x, torch.Tensor):
         out = x.to(device, dtype, copy=copy)
-        if out is x or not on_host(x):  # nothing moved, or a device's tensor
+        if out is x:  # nothing moved
+            return out
+        if not on_host(x):  # a device's tensor: to the host, on its device, or to another
+            if not on_host(out) and out.device != x.device:
+                count("copy.d2d.n")
+                count("copy.d2d.bytes", out.numel() * out.element_size())
             return out
     else:
         out = (torch.tensor if copy else torch.as_tensor)(x, dtype=dtype, device=device)

@@ -8,9 +8,10 @@ listed by top-level definition, import or module docstring (``EXCEPT``):
 ``config.py`` drops ``enable_persistent_jit_cache`` (it imports JAX), the
 native loader builds its library into the port's ``_build/`` directory,
 ``utils/trace.py`` is the port's recorder (spans in request trees with
-profiler ranges and CUDA event pairs, counters, copy helpers, recording off
-by default, statistics over every call since the reset: its imports and
-definitions replace the original's), ``io/thumbnail.py``'s
+profiler ranges and CUDA event pairs, worker threads adopting a request,
+counters under a lock, copy helpers, recording off by default, statistics
+over every call since the reset: its imports and definitions replace the
+original's), ``io/thumbnail.py``'s
 decode fallback copies its tensor to the host on the caller's device,
 ``pipeline/batch.py`` drops its unused JAX imports,
 ``parallel/distributed.py`` joins a torch.distributed group and renders
@@ -65,7 +66,7 @@ EXCEPT = {
         "_ENABLED", "_enabled", "_RECORDING", "_RANGES", "_EVENTS", "COUNTS", "_LOG", "_OPEN",
         "_SPAN_IDS", "_REQUEST_IDS", "enable", "recording", "_Off", "_OFF", "_stack", "Span",
         "_event_pair", "stage_timer", "count", "on_host", "to_host", "to_device", "requests",
-        "stage_stats", "summary", "reset_stats",
+        "stage_stats", "summary", "reset_stats", "_COUNT_LOCK", "current", "adopted",
     },
     "io/thumbnail.py": {"extract_thumb"},
     "pipeline/batch.py": {"jax", "jax.numpy"},

@@ -165,9 +165,9 @@ def test_process_batch_matches_jax(port, jax_proc, dngs):
 
 def test_process_batch_on_a_mesh_matches(port, jax_proc, dngs):
     """Three full-res staged frames (96 x 144, under the 400 px/mm cap: no
-    resize) on a batch-only mesh of two CPU devices, so the group is padded
-    to four: bit-equal to the unsharded batch on the staged path, and within
-    1 code of the JAX Processor on a mesh of four virtual devices. Image i
+    resize) on a batch-only mesh of two CPU devices, one host thread a batch
+    row: bit-equal to the unsharded batch on the staged path, and within 1
+    code of the JAX Processor on a mesh of four virtual devices. Image i
     keeps its key fold_in(PRNGKey(seed), i)."""
     from raw2film_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
