@@ -1376,9 +1376,10 @@ def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
     print(f"{label} on {card}: cold frame {cold!r} ms, then median {statistics.median(lat)!r} ms "
           f"(host clock, request to frame), all {lat!r}")
     # A warm frame's parts, as the engine's worker runs them: process()
-    # with the request's settings (the decode cached), then the histogram;
-    # and, inside process(), its finish alone (the uint8 frame resized back
-    # to the decoded size on the device, then clipped and cast on the host).
+    # with the request's settings (the decode cached), then the histogram
+    # of the frame it left on the card; and, inside process(), its finish
+    # alone (the render's uint8 tensor resized back to the decoded size,
+    # clipped and cast on the card, and downloaded once as uint8).
     pk = dict(kw)
     if not pk.pop("full_preview", False):
         pk.update(sharpness=False, grain=0, halation=False)
@@ -1386,11 +1387,11 @@ def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
     for _ in range(3):
         image, t = host_ms(lambda: proc.process(path, **pk))
         parts["process_ms"].append(t)
+        frame = proc.last_frame_device
         xyz, orig_resolution, _ = proc._image_cache
-        rendered = np.zeros((3, *xyz.shape[-2:]), np.uint8)
+        rendered = torch.zeros((3, *xyz.shape[-2:]), dtype=torch.uint8, device=device)
         parts["finish_ms"].append(host_ms(lambda: proc._finish(rendered, orig_resolution=orig_resolution))[1])
-        parts["histogram_ms"].append(host_ms(lambda: generate_histogram(
-            image.transpose(2, 0, 1), device=device))[1])
+        parts["histogram_ms"].append(host_ms(lambda: generate_histogram(frame, device=device))[1])
     parts = {k: statistics.median(v) for k, v in parts.items()}
     print(f"{label} warm frame parts on {card}, median of 3 (ms): {parts!r}")
     return launches, {"cold_ms": cold, "frame_ms": statistics.median(lat), "all_ms": lat,

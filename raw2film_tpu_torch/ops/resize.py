@@ -9,7 +9,8 @@ them (jax/_src/image/scale.py, ``compute_weight_mat``): sample positions
 shrinking with antialiasing, each output's weights renormalized to sum 1
 (which is the edge clamp of a bilinear upsample), and outputs whose sample
 lies outside the input zeroed. They are applied as float32 matmuls, one per
-resized axis (TF32 must be off, see ``device.disable_tf32``). No hand
+resized axis (TF32 must be off, see ``device.disable_tf32``), each matrix
+uploaded once per device and kept there (``conv.device_matrix``). No hand
 kernel: on the TPU these are XLA too.
 """
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.ops import pyramid
-from raw2film_tpu_torch.utils import trace
+from raw2film_tpu_torch.ops.conv import device_matrix
 
 F32 = np.float32
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -70,13 +71,16 @@ def resize(img: torch.Tensor, out_hw: tuple[int, int], method: str = "linear",
     is."""
     h, w = img.shape[-2:]
     oh, ow = int(out_hw[0]), int(out_hw[1])
+
+    def weights(n_in: int, n_out: int) -> torch.Tensor:
+        key = ("resize", n_in, n_out, method, antialias)
+        return device_matrix(key, lambda: weight_matrix(n_in, n_out, method, antialias), img.device)
+
     out = img
     if oh != h:
-        wh = trace.to_device(weight_matrix(h, oh, method, antialias).T, img.device, copy=True)
-        out = torch.matmul(wh, out)
+        out = torch.matmul(weights(h, oh).T, out)  # a transposed view: the GEMM a host transpose gets
     if ow != w:
-        ww = trace.to_device(weight_matrix(w, ow, method, antialias), img.device, copy=True)
-        out = torch.matmul(out, ww)
+        out = torch.matmul(out, weights(w, ow))
     return out
 
 

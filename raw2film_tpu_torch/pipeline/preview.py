@@ -3,7 +3,9 @@
 The counterpart of ``raw2film_tpu/pipeline/preview.py``: one render thread,
 a one-slot "latest request" mailbox and callbacks, so rapid slider changes
 collapse into one render with the newest settings. It drives the port's
-Processor, and the histogram counts run on the Processor's device.
+Processor, and the histogram counts run on the Processor's device: on the
+frame the Processor kept there (``last_frame_device``) where it resized the
+frame back, else on the image uploaded again.
 
 Each turn of the worker is the request span ``preview.frame``, from the
 request it serves to its ``on_frame``: ``preview.wait`` (the request's time
@@ -88,10 +90,13 @@ class PreviewEngine:
                 try:
                     with stage_timer("preview.render"), self.proc_lock:
                         image = self.processor.process(src, **params)
+                        # taken under the lock, as a one-shot job would replace
+                        # it, and dropped, so the card holds no frame between
+                        frame, self.processor.last_frame_device = self.processor.last_frame_device, None
                     with stage_timer("preview.histogram"):
                         hist = generate_histogram(
-                            image.transpose(2, 0, 1), self.histogram_height,
-                            device=self.processor.device,
+                            image.transpose(2, 0, 1) if frame is None else frame,
+                            self.histogram_height, device=self.processor.device,
                         )
                     self.on_frame(image, hist)
                 except Exception as e:  # keep the loop alive on bad settings

@@ -214,6 +214,9 @@ class Processor:
         self._icc_cache: dict = {}
         self._rows: dict = {}  # (batch row, device) -> the row's Processor (process_batch on a mesh)
         self.last_metadata: dict = {}
+        # The last frame's (3, H, W) uint8 on the device where _finish resized
+        # it back there, else None: PreviewEngine takes it for its histogram.
+        self.last_frame_device: torch.Tensor | None = None
 
     def register_lens(self, name: str) -> bool:
         """Resolve a lens model name from the profile database into
@@ -433,7 +436,9 @@ class Processor:
         """One image through the fused or the staged path, then _finish: the
         span ``span``, a request root for ``process()`` and each image of
         ``process_batch`` without a mesh (``process``), and a batch row's
-        ``mesh.frame`` under the batch's root."""
+        ``mesh.frame`` under the batch's root. A render that is resized back
+        and takes no canvas goes to _finish on the device; any other is
+        downloaded first (``render.download``)."""
         with stage_timer(span):
             fast = parsed = None
             if fused:
@@ -460,30 +465,45 @@ class Processor:
                 out = render_chain_from_mosaic(
                     mosaic, cam_m, bundle, cfg, seed, pattern, gain, crop, norm, device=self.device
                 )
-            with stage_timer("render.download"):
-                host = to_host(out).numpy()
-            return self._finish(host, orig_resolution=orig_resolution, **finish_kw)
+            resize_back = orig_resolution is not None and tuple(out.shape[-2:]) != tuple(orig_resolution)
+            if not (resize_back and finish_kw["canvas_mode"] == "No"):
+                with stage_timer("render.download"):
+                    out = to_host(out).numpy()
+            return self._finish(out, orig_resolution=orig_resolution, **finish_kw)
 
-    def _finish(self, out_chw: np.ndarray, canvas_mode="No", canvas_scale=1.0,
-                canvas_ratio=1.0, orig_resolution=None) -> np.ndarray:
+    def _finish(self, out_chw, canvas_mode="No", canvas_scale=1.0, canvas_ratio=1.0,
+                orig_resolution=None) -> np.ndarray:
         """(3, H, W) uint8 -> (H, W, 3): the canvas, then the resize back to
-        ``orig_resolution`` (clipped and truncated to uint8, as in the JAX
-        Processor). The span ``finish``, with ``finish.upload``,
-        ``finish.resize``, ``finish.download`` and ``finish.cast`` for the
-        resize back."""
+        ``orig_resolution``, clipped and truncated to uint8 (as in the JAX
+        Processor). The span ``finish``, with ``finish.upload`` (a host
+        render only), ``finish.resize``, ``finish.cast`` and
+        ``finish.download`` for the resize back.
+
+        ``out_chw`` is a numpy array, or a device tensor that is resized back
+        and takes no canvas (:meth:`_render` decides; counted as
+        ``finish.device``). The canvas is added on the host, and an array
+        resized back goes up once as uint8. The resize, the clip and the cast
+        run on the device, and the frame leaves it once as uint8; it is kept
+        there as ``last_frame_device`` (None where nothing was resized)."""
         with stage_timer("finish"):
-            image = out_chw.transpose(1, 2, 0)
-            image = canvas.add_canvas(image, canvas_mode, canvas_scale, canvas_ratio)
-            if orig_resolution is not None and tuple(image.shape[:2]) != tuple(orig_resolution):
+            self.last_frame_device = None
+            if isinstance(out_chw, torch.Tensor):
+                count("finish.device")
+                chw = out_chw
+            else:
+                image = canvas.add_canvas(out_chw.transpose(1, 2, 0), canvas_mode, canvas_scale, canvas_ratio)
+                if orig_resolution is None or tuple(image.shape[:2]) == tuple(orig_resolution):
+                    return image
                 with stage_timer("finish.upload"):
-                    chw = to_device(np.ascontiguousarray(image.transpose(2, 0, 1)), self.device,
-                                    torch.float32)
-                with stage_timer("finish.resize"):
-                    scaled = resolution_scaling(chw, tuple(orig_resolution))
-                with stage_timer("finish.download"):
-                    scaled = to_host(scaled).numpy()
-                with stage_timer("finish.cast"):
-                    image = np.clip(scaled, 0, 255).astype(np.uint8).transpose(1, 2, 0)
+                    chw = to_device(np.ascontiguousarray(image.transpose(2, 0, 1)), self.device)
+            with stage_timer("finish.resize"):
+                scaled = resolution_scaling(chw.to(torch.float32), tuple(orig_resolution))
+            with stage_timer("finish.cast"):
+                # truncates as numpy's astype does: equal codes for finite input
+                frame = torch.clamp(scaled, 0, 255).to(torch.uint8)
+            with stage_timer("finish.download"):
+                image = to_host(frame).numpy().transpose(1, 2, 0)
+            self.last_frame_device = frame
             return image
 
     # ---------------------------------------------------------- fused path

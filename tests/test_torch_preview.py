@@ -137,3 +137,34 @@ def test_preview_engine_logs_its_stages(frame):
     finally:
         ttrace.enable(False)
         ttrace.reset_stats()
+
+
+def test_preview_histogram_counts_the_frame_left_on_the_device(frame, monkeypatch):
+    """A preview capped below the decode (144 x 216 rendered, resized back
+    to 360 x 540) finishes on the device: its histogram counts the frame the
+    Processor kept there, so nothing goes up for it, and neither the render
+    nor the finish makes a host round trip. The strip is the histogram of
+    the image handed to ``on_frame``."""
+    from raw2film_tpu_torch.utils import trace
+
+    params = dict(STOCKS, seed=3, max_scale=6.0)
+    proc = Processor(device="cpu")
+    _run(PreviewEngine, proc, frame, **params)  # decodes and caches
+    monkeypatch.setattr(trace, "on_host", lambda t: False)  # the CPU taken for a device
+    trace.reset_stats()
+    trace.enable(ranges=False)
+    try:
+        img, hist = _run(PreviewEngine, proc, frame, **params)
+        (tree,) = trace.requests()
+    finally:
+        trace.enable(False)
+        trace.reset_stats()
+    names = [s.name for s in tree]
+    assert img.shape == (360, 540, 3)
+    assert "finish.upload" not in names and "render.download" not in names
+    histogram = next(s for s in tree if s.name == "preview.histogram")
+    assert histogram.counts == {"copy.d2h.n": 1, "copy.d2h.bytes": 3 * 256 * 4}
+    finish = [s for s in tree if s.name == "finish"]
+    assert [s.counts for s in finish] == [{"finish.device": 1}]
+    assert proc.last_frame_device is None  # the engine took it
+    np.testing.assert_array_equal(hist, thist.generate_histogram(img.transpose(2, 0, 1), device="cpu"))

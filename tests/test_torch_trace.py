@@ -234,6 +234,7 @@ class _Blocking:
     """A Processor stand-in whose first ``process`` waits for ``go``."""
 
     device = "cpu"
+    last_frame_device = None  # finishes nothing on a device
 
     def __init__(self):
         self.started, self.go, self.calls = threading.Event(), threading.Event(), 0
