@@ -102,6 +102,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench import roofline
 from raw2film_tpu_torch import PreviewEngine, Processor, load_film_bundle, render_chain, render_chain_from_mosaic
 from raw2film_tpu_torch import data as ref_data
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
@@ -166,17 +167,10 @@ KERNELS = {
     "exposure_sample": ("K15", "raw2film_tpu_torch/csrc/demosaic.cu",
                         "none: the fused path's host estimate (raw2film_tpu/pipeline/processor.py:106, :753)"),
 }
-# The H100's peaks (NVIDIA's data sheet, SXM, at 700 W): device memory and
-# fp32 outside the tensor cores. A kernel's bound is the larger of its bytes
-# (each input read once, each output written once) over the first and its
-# fp32 operations (a multiply-add counts 2) over the second.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
-
 def bound(nbytes: float, flops: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """A kernel's least time (``portbench/roofline.py``) and what sets it."""
+    by_bytes = nbytes / roofline.HBM_BYTES_PER_S >= flops / roofline.FP32_FLOP_PER_S
+    return {"bound_ms": roofline.least_s(nbytes, flops) * 1e3, "bound_by": "bytes" if by_bytes else "operations"}
 
 
 def counts(**nonzero) -> dict:
@@ -325,17 +319,6 @@ def library_conv_ms(x: torch.Tensor, k2d: np.ndarray, iters: int = 5) -> float:
     return med(lambda: F.conv2d(xp, wt, groups=c), iters)
 
 
-def rank_flops(u, v, hw, c: int = 1) -> float:
-    """Multiply-adds of a rank stack over c planes: the true taps (the span
-    of the nonzero ones) of every nonzero rank, each channel (2 FLOPs each);
-    a shared stack counts once per plane."""
-    u3, v3 = sep_rank._stack(u, v)
-    live = np.any(u3 != 0, axis=2) & np.any(v3 != 0, axis=2)  # (Cb, R)
-    taps = 2 * sep_rank.true_radius(u3) + 1 + 2 * sep_rank.true_radius(v3) + 1  # (R,)
-    per_plane = float((live * taps).sum())
-    return 2.0 * per_plane * hw[0] * hw[1] * (c if u3.shape[0] == 1 else 1)
-
-
 def demosaic_path(x: torch.Tensor) -> str:
     """The K1 path a mosaic takes (its output is freshly allocated, 16-byte
     aligned)."""
@@ -465,8 +448,8 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
         raise AssertionError(f"sep_rank: a small-blur launch copied to the device: {prof['h2d_copies']}")
     small_blur = {
         "taps": [len(t) for t in su], "ms": med(blur, 20), "device_ms": prof["device_ms"],
-        **bound(sm.numel() * 8, rank_flops(su, sv, sm.shape[1:], 3)),
-        "library_ms": library_conv_ms(sm, dense_kernels(*sep_rank._stack(su, sv), 3), 5),
+        **bound(sm.numel() * 8, roofline.rank_flops(*sep_rank.stack_taps(su, sv), *sm.shape[1:])),
+        "library_ms": library_conv_ms(sm, dense_kernels(*sep_rank.stack_taps(su, sv), 3), 5),
     }
     print(f"  sep_rank /4 small blur {tuple(sm.shape)}: {small_blur!r}")
     del sm
@@ -494,7 +477,7 @@ def check_sep_rank(device, full_hw, cfg) -> dict:
         "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, d, u3, v3, grain), 3),
         # the ranks, then per output the grain's two correlation passes and
         # its amplitude (about 12 FLOPs); float32 in and out
-        **bound(3 * px * 8, rank_flops(u3, v3, full_hw, 3) + 3 * px * (4 * n + 12)),
+        **bound(3 * px * 8, roofline.rank_flops(u3, v3, *full_hw) + 3 * px * (4 * n + 12)),
         # the convolution alone: the grain has no library counterpart
         "library_ms": library_conv_ms(d, dense_kernels(u3, v3, 3), 3),
         "device_ms": prof["device_ms"],
@@ -548,7 +531,7 @@ def check_sep_rank_narrow(device) -> dict:
         "max_abs_err": err,
         "ms": turns["kernel"],
         "plain_ms": med(lambda: plain(sep_rank.fused_sep_rank, x, u3, v3), 5),
-        **bound(3 * px * 8, rank_flops(u3, v3, (540, 360), 3)),
+        **bound(3 * px * 8, roofline.rank_flops(u3, v3, 540, 360)),
         "library_ms": turns["conv2d"],
         "device_ms": prof["device_ms"],
         "host_ms": prof["host_ms"],
@@ -1014,12 +997,12 @@ def check_halation(device, bundle, cfg) -> dict:
             print(f"  halation {hw[0]}x{hw[1]} under the profiler: {prof!r}")
         ms = med(launch, 20)
         plain_ms = med(lambda: plain(hal_ops.halation_mega, *args), 3)
-        u2, v2 = sep_rank._stack(us, vs)
+        u2, v2 = sep_rank.stack_taps(us, vs)
         numel = img.numel()
         # the exposure and the /4 rows in, the density out; the shared ranks
         # on 3 channels, then per output the x4 lerp, the combine and the
         # development (about 60 FLOPs)
-        b = bound(4 * (2 * numel + rows_up.numel()), rank_flops(u2, v2, hw) * 3 + numel * 60)
+        b = bound(4 * (2 * numel + rows_up.numel()), roofline.rank_flops(u2, v2, *hw) + numel * 60)
         times[f"{hw[0]}x{hw[1]}"] = {"taps": [len(us), len(us[0])], "ms": ms, "plain_ms": plain_ms, **b}
         print(f"  halation {hw[0]}x{hw[1]} ({len(us)} x {len(us[0])} taps, develop): {ms!r} ms vs plain "
               f"{plain_ms!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']})")

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops import conv as convops
 
 
@@ -70,7 +71,7 @@ def burn_smallmap(density: torch.Tensor, d_ref_green, burn_scale: float = 50.0,
     pad to (H, W): rows and columns beyond the upsampled extent repeat the
     last weight row. The column matrix, and without ``row_offset`` the row
     matrix, depend only on the shape and the factor, so they are built and
-    uploaded once (``conv.device_matrix``) and shared, read only, by every
+    uploaded once (``kernels/cache.py``) and shared, read only, by every
     render of that shape. With ``row_offset`` the cells are aligned to the
     frame's grid (:func:`_aligned_slice`) and the row matrix is built on the
     device (:func:`_lerp_rows_dynamic`)."""
@@ -91,9 +92,9 @@ def burn_smallmap(density: torch.Tensor, d_ref_green, burn_scale: float = 50.0,
         if factor <= 8 or hs == 0 or ws == 0:
             return None
         sliced = mask
-        rowmat = convops.device_matrix(("burn_rows", hs, factor, h), lambda: _lerp_rows(hs, factor, h), dev)
+        rowmat = cache.on_device(("burn_rows", hs, factor, h), lambda: _lerp_rows(hs, factor, h), dev)
     small = convops.gaussian_blur(convops.box_downsample(sliced, factor), 3.0, truncate=2.0)[0]
-    colmat = convops.device_matrix(("burn_cols", ws, factor, w), lambda: _lerp_rows(ws, factor, w).T, dev)
+    colmat = cache.on_device(("burn_cols", ws, factor, w), lambda: _lerp_rows(ws, factor, w).T, dev)
     return small.contiguous(), rowmat, colmat
 
 

@@ -13,19 +13,13 @@ Border convention: reflect-101 (numpy's and ``jnp.pad``'s "reflect").
 
 from __future__ import annotations
 
-import threading
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.utils import trace
-
-# Host-built resampling matrices kept on their device (:func:`device_matrix`):
-# at most this many per device, each a few MB at 45 MP (the burn's four: 7 MB).
-MATRIX_CACHE_SIZE = 16
-_matrix_lock = threading.Lock()
-_device_matrices: dict = {}
 
 # ------------------------------------------------------------ host builders
 
@@ -79,28 +73,6 @@ def _lerp_matrix_full(n_in: int, f: int) -> np.ndarray:
         m[o, i1] += frac
     m.setflags(write=False)
     return m
-
-
-def device_matrix(key, build, device) -> torch.Tensor:
-    """The float32 matrix ``build()`` on ``device``, contiguous (a kernel
-    takes it as it is: ``torch.tensor`` of a transposed view keeps its
-    strides), built and uploaded once per ``key`` and device, so a render
-    makes no copy of it. Read-only by contract: callers only read it. At
-    most :data:`MATRIX_CACHE_SIZE` are kept per device, the device's oldest
-    dropped first, so frames rendering on several devices at once do not
-    evict each other's; every reader runs on the current stream, so a
-    dropped matrix is never in use on another."""
-    dkey = (key, str(torch.device(device)))
-    hit = _device_matrices.get(dkey)
-    if hit is not None:
-        return hit
-    mat = trace.to_device(np.ascontiguousarray(build(), np.float32), device, copy=True)
-    with _matrix_lock:
-        mine = [k for k in _device_matrices if k[1] == dkey[1]]
-        if len(mine) >= MATRIX_CACHE_SIZE:
-            _device_matrices.pop(mine[0])
-        _device_matrices[dkey] = mat
-    return mat
 
 
 # ------------------------------------------------------------ borders
@@ -195,24 +167,25 @@ def gaussian_blur(img: torch.Tensor, sigma: float, truncate: float = 4.0) -> tor
 def box_downsample(img: torch.Tensor, f: int) -> torch.Tensor:
     """(C, H, W) -> (C, H//f, W//f) block mean as Dh @ x @ Dw, two float32
     matmuls (the counterpart of ``box_downsample_mxu``; TF32 must be off,
-    see ``device.disable_tf32``), the matrices kept on the device."""
+    see ``device.disable_tf32``), the matrices kept on the device
+    (``kernels/cache.py``)."""
     c, h, w = img.shape
     f = int(f)
     h2, w2 = h // f, w // f
     x = img[:, : h2 * f, : w2 * f]
-    dh = device_matrix(("mean", h2, f), lambda: _mean_matrix(h2, f), img.device)
-    dw = device_matrix(("mean_t", w2, f), lambda: _mean_matrix(w2, f).T, img.device)
+    dh = cache.on_device(("mean", h2, f), lambda: _mean_matrix(h2, f), img.device)
+    dw = cache.on_device(("mean_t", w2, f), lambda: _mean_matrix(w2, f).T, img.device)
     return torch.matmul(torch.matmul(dh, x), dw)
 
 
 def bilinear_upsample(img: torch.Tensor, f: int) -> torch.Tensor:
     """(C, h, w) -> (C, h*f, w*f) half-pixel bilinear with edge clamp, as
     Uh @ x @ Uw (the weights of ``jax.image.resize(..., "linear")``), the
-    matrices kept on the device."""
+    matrices kept on the device (``kernels/cache.py``)."""
     c, h, w = img.shape
     f = int(f)
-    uh = device_matrix(("lerp", h, f), lambda: _lerp_matrix_full(h, f), img.device)
-    uw = device_matrix(("lerp_t", w, f), lambda: _lerp_matrix_full(w, f).T, img.device)
+    uh = cache.on_device(("lerp", h, f), lambda: _lerp_matrix_full(h, f), img.device)
+    uw = cache.on_device(("lerp_t", w, f), lambda: _lerp_matrix_full(w, f).T, img.device)
     return torch.matmul(torch.matmul(uh, img), uw)
 
 

@@ -35,6 +35,7 @@ import torch
 
 from raw2film_tpu_torch.config import LOG10_EPS
 from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops import conv as convops
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import pyramid, resize, sep_rank
@@ -222,19 +223,17 @@ class Packed:
     args_ptr: int
 
 
-_packed: dict = {}
-
-
 def pack(u, v, c: int, h: int, w: int) -> Packed:
     """K14's launch struct for shared ranks (u, v) on a (c, h, w) image,
-    cached by the taps' contents and the shape. Both tap lengths are padded
+    kept by the taps' contents and the shape. Both tap lengths are padded
     to the kernels' K: the longer of the two, at least :data:`K_MIN`; a
     zero tap adds an exact 0, so the result is unchanged."""
-    key = (sep_rank.taps_key(u), sep_rank.taps_key(v), c, h, w)
-    hit = _packed.get(key)
-    if hit is not None:
-        return hit
-    u2, v2 = sep_rank._stack(u, v)
+    key = ("halation", cache.content_key(u), cache.content_key(v), c, h, w)
+    return cache.host(key, lambda: _pack(u, v, c, h, w))
+
+
+def _pack(u, v, c: int, h: int, w: int) -> Packed:
+    u2, v2 = sep_rank.stack_taps(u, v)
     if u2.shape[0] != 1:
         raise ValueError("halation ranks: want shared (R, k) taps")
     k = max(u2.shape[2], v2.shape[2], K_MIN)
@@ -248,7 +247,7 @@ def pack(u, v, c: int, h: int, w: int) -> Packed:
     taps.setflags(write=False)
     args = Stack(C=c, H=h, W=w, W4=-(-w // PYR_F), R=r, K=k)
     ctypes.memmove(args.taps, taps.ctypes.data, taps.nbytes)
-    return sep_rank._remember(_packed, key, Packed(taps, args, ctypes.addressof(args)))
+    return Packed(taps, args, ctypes.addressof(args))
 
 
 def halation_mega(img, u, v, rows_up, factors, develop=None) -> torch.Tensor:

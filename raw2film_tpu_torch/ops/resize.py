@@ -10,7 +10,7 @@ shrinking with antialiasing, each output's weights renormalized to sum 1
 (which is the edge clamp of a bilinear upsample), and outputs whose sample
 lies outside the input zeroed. They are applied as float32 matmuls, one per
 resized axis (TF32 must be off, see ``device.disable_tf32``), each matrix
-uploaded once per device and kept there (``conv.device_matrix``). No hand
+uploaded once per device and kept there (``kernels/cache.py``). No hand
 kernel: on the TPU these are XLA too.
 """
 
@@ -21,8 +21,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops import pyramid
-from raw2film_tpu_torch.ops.conv import device_matrix
 
 F32 = np.float32
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -74,7 +74,7 @@ def resize(img: torch.Tensor, out_hw: tuple[int, int], method: str = "linear",
 
     def weights(n_in: int, n_out: int) -> torch.Tensor:
         key = ("resize", n_in, n_out, method, antialias)
-        return device_matrix(key, lambda: weight_matrix(n_in, n_out, method, antialias), img.device)
+        return cache.on_device(key, lambda: weight_matrix(n_in, n_out, method, antialias), img.device)
 
     out = img
     if oh != h:

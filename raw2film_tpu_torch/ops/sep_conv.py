@@ -13,10 +13,10 @@ ported so that every TPU kernel has a counterpart.
 
 The taps reach the kernel by value: :func:`pack` lays a vector out as the
 ``r2f::conv1d::Taps`` struct of ``csrc/conv1d.cu`` once per distinct vector
-and axis, cached by content, and a launch passes a pointer to it, so no
-launch copies anything to the device. A vector packed above
-:data:`MAX_TAPS` floats goes to a device buffer uploaded once, cached the
-same way.
+and axis, kept by content (``kernels/cache.py``), and a launch passes a
+pointer to it, so no launch copies anything to the device. A vector packed
+above :data:`MAX_TAPS` floats goes to a device buffer uploaded once, kept
+there the same way.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops.conv import conv1d_axis
-from raw2film_tpu_torch.ops.sep_rank import _remember, taps_key
 from raw2film_tpu_torch.utils import trace
 
 MAX_TAPS = 256  # r2f::conv1d::MAX_TAPS: floats of taps passed by value
@@ -50,7 +50,8 @@ class Taps(ctypes.Structure):
 class Packed:
     """A tap vector as a kernel reads it: ``taps`` the n packed taps,
     ``off`` the window offset of the first, ``args`` the by-value struct
-    (its taps filled only when ``by_value``) and ``args_ptr`` its address."""
+    (its taps filled only when ``by_value``), ``args_ptr`` its address and
+    ``key`` the key of its device buffer."""
 
     taps: np.ndarray
     off: int
@@ -58,10 +59,6 @@ class Packed:
     args_ptr: int
     by_value: bool
     key: tuple
-
-
-_packed: dict = {}
-_device_taps: dict = {}
 
 
 def _taps(taps) -> np.ndarray:
@@ -93,28 +90,19 @@ def packed_taps(t: np.ndarray, axis_code: int) -> tuple[np.ndarray, int]:
 
 def pack(t: np.ndarray, axis_code: int) -> Packed:
     """The kernel's form of the tap vector ``t`` along ``axis_code`` (0:
-    K5, 1: K6), cached by the taps' contents."""
-    key = (axis_code, taps_key(t))
-    hit = _packed.get(key)
-    if hit is not None:
-        return hit
+    K5, 1: K6), kept by the taps' contents."""
+    key = ("conv1d", axis_code, cache.content_key(t))
+    return cache.host(key, lambda: _pack(t, axis_code, key))
+
+
+def _pack(t: np.ndarray, axis_code: int, key) -> Packed:
     taps, off = packed_taps(t, axis_code)
     taps.setflags(write=False)
     args = Taps(off=off, n=taps.size)
     by_value = taps.size <= MAX_TAPS
     if by_value:
         ctypes.memmove(args.t, taps.ctypes.data, taps.nbytes)
-    return _remember(_packed, key, Packed(taps, off, args, ctypes.addressof(args), by_value, key))
-
-
-def device_taps(p: Packed, device) -> torch.Tensor:
-    """The device buffer of a vector packed above :data:`MAX_TAPS`, uploaded
-    once per vector, axis and device."""
-    key = (p.key, str(torch.device(device)))
-    hit = _device_taps.get(key)
-    if hit is not None:
-        return hit
-    return _remember(_device_taps, key, trace.to_device(p.taps.copy(), device))
+    return Packed(taps, off, args, ctypes.addressof(args), by_value, key)
 
 
 def vec_path(w: int, *ptrs: int) -> bool:
@@ -133,7 +121,7 @@ def _conv1d(img: torch.Tensor, taps, name: str) -> torch.Tensor:
         raise ValueError(f"img: want (C, H, W), got {tuple(img.shape)}")
     c, h, w = img.shape
     p = pack(t, axis_code)
-    buf = None if p.by_value else device_taps(p, img.device).data_ptr()
+    buf = None if p.by_value else cache.on_device(p.key, lambda: p.taps, img.device).data_ptr()
     out = torch.empty_like(img)
     err = kb.lib().r2f_conv1d(
         img.data_ptr(), out.data_ptr(), c, h, w, p.args_ptr, buf, axis_code,

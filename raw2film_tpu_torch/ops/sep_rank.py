@@ -19,20 +19,19 @@ on such a shape is counted as ``sep_rank_narrow`` (K4), any other as
 
 The taps reach the kernel by value: :func:`pack` lays a stack out as the
 ``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``, once per distinct
-stack, cached by the taps' contents (callers such as the burn blur rebuild
-equal taps on every call), and a launch passes a pointer to it, so no
-launch copies anything to the device. The kernel runs every rank's taps in
-chunks of :data:`CK`: :func:`pack` zero-pads each rank about its centre to
-a multiple of CK from its true length (the span of its nonzero taps), and
-gives it its own chunk counts and window offsets (:func:`chunk_axis`). A
+stack, kept by the taps' contents (``kernels/cache.py``), and a launch
+passes a pointer to it, so no launch copies anything to the device. The
+kernel runs every rank's taps in chunks of :data:`CK`: :func:`pack`
+zero-pads each rank about its centre to a multiple of CK from its true
+length (the span of its nonzero taps), and gives it its own chunk counts
+and window offsets (:func:`chunk_axis`). A
 stack above the struct's :data:`MAX_TAPS` floats is uploaded once to a
-device buffer, cached the same way.
+device buffer, kept there the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops.conv import conv1d_axis
 from raw2film_tpu_torch.utils import trace
@@ -56,7 +56,6 @@ MAX_C = 4
 MAX_R = 16
 MAX_TAPS = 2048
 SMALL_TAPS = 128
-CACHE_SIZE = 64  # packed stacks (and device buffers) kept
 
 
 class Rank(ctypes.Structure):
@@ -107,7 +106,8 @@ class Packed:
     the ranks run per channel; ``args`` the by-value struct, its taps filled
     only when ``by_value``, and ``args_ptr`` its address; ``narrow``:
     whether the TPU's K2 declines this stack on the image shape it was
-    packed for."""
+    packed for; ``key`` the key of its device buffer, the same for every
+    image shape."""
 
     taps: np.ndarray
     nrank: np.ndarray
@@ -116,27 +116,6 @@ class Packed:
     by_value: bool
     narrow: bool
     key: Any
-
-
-_cache_lock = threading.Lock()
-_packed: dict = {}
-_device_taps: dict = {}
-
-
-def _remember(cache: dict, key, value):
-    with _cache_lock:
-        if len(cache) >= CACHE_SIZE:
-            cache.pop(next(iter(cache)))
-        cache[key] = value
-    return value
-
-
-def taps_key(t):
-    """A content key of a tap argument: arrays by dtype, shape and bytes,
-    sequences element by element."""
-    if isinstance(t, np.ndarray):
-        return (t.dtype, t.shape, t.tobytes())
-    return tuple(taps_key(np.asarray(r)) for r in t)
 
 
 def tpu_declines(h: int, w: int, rh: int) -> bool:
@@ -165,7 +144,7 @@ def _ranks(taps) -> np.ndarray:
     return np.stack([np.pad(r, (n - len(r)) // 2) for r in rows])
 
 
-def _stack(u, v):
+def stack_taps(u, v):
     """(Cb, R, k) float32 column and row tap stacks; Cb = 1 when shared."""
     u = _ranks(u)
     v = _ranks(v)
@@ -213,7 +192,7 @@ def chunk_axis(t: np.ndarray, ck: int = CK):
 
 def fused_sep_rank_plain(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
     """Plain version of K2. ``grain``: (seed pair, prm f32[6] tensor, taps)."""
-    u3, v3 = _stack(u, v)
+    u3, v3 = stack_taps(u, v)
     per_channel = u3.shape[0] > 1
     out = None
     for r in range(u3.shape[1]):
@@ -246,13 +225,14 @@ def chunked(u3: np.ndarray, v3: np.ndarray, c: int, h: int, w: int, nrank, ck: i
 
 
 def pack(u, v, c: int, h: int, w: int) -> Packed:
-    """The kernel's form of the stack (u, v) for a (c, h, w) image, cached
+    """The kernel's form of the stack (u, v) for a (c, h, w) image, kept
     by the taps' contents and the image shape."""
-    key = (taps_key(u), taps_key(v), c, h, w)
-    hit = _packed.get(key)
-    if hit is not None:
-        return hit
-    u3, v3 = _stack(u, v)
+    key = ("sep_rank", cache.content_key(u), cache.content_key(v), c, h, w)
+    return cache.host(key, lambda: _pack(u, v, c, h, w, key[:3]))
+
+
+def _pack(u, v, c: int, h: int, w: int, key) -> Packed:
+    u3, v3 = stack_taps(u, v)
     cb, r, kv = u3.shape
     if cb not in (1, c):
         raise ValueError(f"taps for {cb} channels, image has {c}")
@@ -271,19 +251,7 @@ def pack(u, v, c: int, h: int, w: int) -> Packed:
     if by_value:
         ctypes.memmove(args.taps, taps.ctypes.data, taps.nbytes)
     narrow = tpu_declines(h, w, kv // 2)
-    return _remember(
-        _packed, key, Packed(taps, nrank, args, ctypes.addressof(args), by_value, narrow, key[:2])
-    )
-
-
-def device_taps(p: Packed, device) -> torch.Tensor:
-    """The device buffer of a stack above :data:`MAX_TAPS`, uploaded once
-    per stack and device."""
-    key = (p.key, str(torch.device(device)))
-    hit = _device_taps.get(key)
-    if hit is not None:
-        return hit
-    return _remember(_device_taps, key, trace.to_device(p.taps.copy(), device))
+    return Packed(taps, nrank, args, ctypes.addressof(args), by_value, narrow, key)
 
 
 def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
@@ -298,7 +266,7 @@ def fused_sep_rank(img: torch.Tensor, u, v, grain=None) -> torch.Tensor:
         raise ValueError(f"img: want (C, H, W), got {tuple(shape)}")
     c, h, w = shape
     p = pack(u, v, c, h, w)
-    dtaps = None if p.by_value else device_taps(p, img.device).data_ptr()
+    dtaps = None if p.by_value else cache.on_device(p.key, lambda: p.taps, img.device).data_ptr()
     out = torch.empty_like(img)
     gargs = prm_ptr = None
     if grain is not None:

@@ -6,7 +6,7 @@ distinct stack and cached by content, every rank zero-padded about its
 centre to chunks of ``CK`` taps with its own chunk counts and window
 offsets; a stack above the struct's capacity goes to a device buffer
 uploaded once. K3 takes the burn's matrices from a device cache
-(``ops/conv.py::device_matrix``) and picks its 16-byte path by shape and
+(``kernels/cache.py::on_device``) and picks its 16-byte path by shape and
 alignment (``ops/print_encode.py::vector_path``). K14 takes its shared ranks by value
 too (``ops/halation.py::pack``, ``r2f::hal::Stack`` of ``csrc/halation.cu``),
 padded to the tap length of one of its kernels. K13 takes its x f phase
@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from raw2film_tpu_torch.kernels import build as kb
+from raw2film_tpu_torch.kernels import cache
 from raw2film_tpu_torch.ops import burn, chroma_nr, conv, halation, mtf, print_encode, pyramid, sep_conv, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
@@ -260,7 +261,7 @@ def test_packed_layout(name):
     p = sep_rank.pack(u, v, c, 40, 50)
     assert p.by_value
     np.testing.assert_array_equal(_taps(p), p.taps.ravel())
-    u3, v3 = sep_rank._stack(u, v)
+    u3, v3 = sep_rank.stack_taps(u, v)
     cu, cv = _centred(p)
     _same_taps(cu, u3)
     _same_taps(cv, v3)
@@ -294,23 +295,30 @@ def test_packed_narrow_flag():
         assert sep_rank.pack(u, u, 3, h, w).narrow == sep_rank.tpu_declines(h, w, 11)
 
 
-def test_stack_above_capacity_takes_the_device_buffer():
+def test_stack_above_capacity_takes_the_device_buffer(fake_launch, monkeypatch):
     """9 ranks x (121 + 121) taps, 128 + 128 when padded = 2304 floats:
     above the struct, so the wrapper reads a device buffer of the packed
     layout, uploaded once per stack and device."""
+    made = []
+    real = torch.tensor
+    monkeypatch.setattr(torch, "tensor", lambda *a, **k: (made.append(a), real(*a, **k))[1])
     rng = np.random.default_rng(9)
     u = (rng.normal(size=(9, 121)) * 0.02).astype(np.float32)
     v = (rng.normal(size=(9, 121)) * 0.02).astype(np.float32)
     p = sep_rank.pack(u, v, 3, 60, 70)
     assert p.taps.size == 9 * 256 > sep_rank.MAX_TAPS and not p.by_value
-    buf = sep_rank.device_taps(p, "cpu")
+    for _ in range(3):
+        sep_rank.fused_sep_rank(torch.zeros(3, 60, 70), u, v)
+    buf = cache.on_device(p.key, None, "cpu")  # no build: the launches uploaded it
+    assert len(made) == 1 and [a[3] for _, a in fake_launch.calls] == [buf.data_ptr()] * 3
     np.testing.assert_array_equal(buf.numpy(), p.taps)
     cu, cv = _centred(p)
     _same_taps(cu, u[None])
     _same_taps(cv, v[None])
-    assert sep_rank.device_taps(p, "cpu") is buf
     rebuilt = sep_rank.pack(u.copy(), v.copy(), 3, 200, 90)  # another shape, the same taps
-    assert rebuilt is not p and sep_rank.device_taps(rebuilt, "cpu") is buf
+    assert rebuilt is not p and rebuilt.key == p.key
+    sep_rank.fused_sep_rank(torch.zeros(3, 200, 90), u.copy(), v.copy())
+    assert len(made) == 1 and fake_launch.calls[-1][1][3] == buf.data_ptr()
     small = sep_rank.pack(u[:4], v[:4], 3, 60, 70)
     assert small.by_value
 
@@ -362,7 +370,7 @@ def test_port_stacks_chunk_layout(name):
     p = sep_rank.pack(u, v, c, 37, 45)
     a, ck = p.args, sep_rank.CK
     assert p.by_value and p.taps.size <= sep_rank.MAX_TAPS
-    u3, v3 = sep_rank._stack(u, v)
+    u3, v3 = sep_rank.stack_taps(u, v)
     if isinstance(u, list):
         true = [(len(a_), len(b_)) for a_, b_ in zip(u, v)]
     else:
@@ -434,7 +442,7 @@ def test_pack_cache_under_threads():
     """Threads packing overlapping stacks (the preview worker beside the
     caller) each get their own taps back, and the cache stays bounded."""
     rng = np.random.default_rng(11)
-    stacks = [(rng.normal(size=(2, 5)).astype(np.float32),) * 2 for _ in range(3 * sep_rank.CACHE_SIZE)]
+    stacks = [(rng.normal(size=(2, 5)).astype(np.float32),) * 2 for _ in range(cache.HOST_SIZE + 64)]
     errors = []
 
     def work(offset):
@@ -461,7 +469,7 @@ def test_pack_cache_under_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert errors == []
-    assert len(sep_rank._packed) <= sep_rank.CACHE_SIZE
+    assert len(cache._host) <= cache.HOST_SIZE
 
 
 @pytest.mark.parametrize("f", [1, 2, 3, 4, 8, 16])
@@ -519,19 +527,44 @@ def test_burn_matrices_stay_on_the_device():
     np.testing.assert_array_equal(first[1].numpy(), rm)
     cm = conv._lerp_matrix_full(ws, factor)
     np.testing.assert_array_equal(first[2].numpy(), cm.T)
-    dh = conv.device_matrix(("mean", hs, factor), None, "cpu")  # built by the burn's downsample
+    dh = cache.on_device(("mean", hs, factor), None, "cpu")  # built by the burn's downsample
     np.testing.assert_array_equal(dh.numpy(), conv._mean_matrix(hs, factor))
     other = burn.burn_smallmap(torch.rand((3, 1000, 1485)), 0.8, 10.0)
     assert other[1] is not first[1] and other[1].shape == (1000, 10)
     np.testing.assert_array_equal(other[1][-10:].numpy(), np.repeat(conv._lerp_matrix_full(10, 100)[-1:], 10, 0))
     small = torch.rand((3, 300, 450))  # factor 6: the staged burn, its upsample on cached matrices too
     burn.burn(small, 0.8, 0.3, 50.0)
-    uw = conv.device_matrix(("lerp_t", 75, 6), None, "cpu")
+    uw = cache.on_device(("lerp_t", 75, 6), None, "cpu")
     assert uw.is_contiguous()
     np.testing.assert_array_equal(uw.numpy(), conv._lerp_matrix_full(75, 6).T)
-    for n in range(conv.MATRIX_CACHE_SIZE + 4):
+    for n in range(cache.DEVICE_SIZE + 4):
         conv.box_downsample(torch.rand((1, 40 + n, 40)), 3)
-    assert len(conv._device_matrices) <= conv.MATRIX_CACHE_SIZE
+    assert len(cache._device["cpu"]) <= cache.DEVICE_SIZE
+
+
+def _fill(kind: str, device: str, n: int) -> None:
+    """n distinct tables of ``kind`` on ``device``, each through its launch
+    site: a box downsample's mean matrices, or a K2 stack above the
+    struct's capacity (its launch into the fake library)."""
+    for i in range(n):
+        if kind == "matrix":
+            conv.box_downsample(torch.zeros((1, 30 + 3 * i, 30), device=device), 3)
+        else:
+            u = np.full((9, 121), 0.01 + i / 1024, np.float32)
+            sep_rank.fused_sep_rank(torch.zeros((3, 20, 30), device=device), u, u)
+
+
+@pytest.mark.parametrize("kind", ["matrix", "taps"])
+def test_device_tables_are_kept_per_device(fake_launch, kind):
+    """Filling one device's table far past its bound, as frames on one card
+    of a mesh do, evicts nothing of another device's entries: the oldest of
+    that device's go, and it keeps at most DEVICE_SIZE."""
+    _fill(kind, "meta", 2)
+    kept = dict(cache._device["meta"])
+    assert kept and all(t.device.type == "meta" for t in kept.values())
+    _fill(kind, "cpu", 5 * cache.DEVICE_SIZE)
+    assert len(cache._device["cpu"]) == cache.DEVICE_SIZE
+    assert all(cache._device["meta"].get(k) is t for k, t in kept.items())
 
 
 @pytest.mark.parametrize(
@@ -721,7 +754,7 @@ def test_conv1d_takes_its_taps_by_value(fake_launch, monkeypatch, name, n, w, of
             assert args[6] is None
             np.testing.assert_array_equal(taps, p.taps)
         else:
-            assert args[6] == sep_conv.device_taps(p, "cpu").data_ptr()
+            assert args[6] == cache.on_device(p.key, None, "cpu").data_ptr()
         assert args[8] == int(sep_conv.vec_path(w, img.data_ptr(), out.data_ptr())) == int(w % 4 == 0 and not offset)
     assert p.by_value is (n <= sep_conv.MAX_TAPS)
     assert len(made) == (0 if p.by_value else 1)  # the buffer, once
