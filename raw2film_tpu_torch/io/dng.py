@@ -591,14 +591,18 @@ def _read_tiff_raw(buf: bytes, path: str) -> RawImage:
     else:
         offsets = ifd[_TAGS["StripOffsets"]]
         counts = ifd.get(_TAGS["StripByteCounts"]) or [h * w * spp * bits // 8]
-        payload = b"".join(buf[o : o + c] for o, c in zip(offsets, counts))
+        # One strip stays a view on the file's bytes; several are joined once.
+        strips = [memoryview(buf)[o : o + c] for o, c in zip(offsets, counts)]
+        payload = strips[0] if len(strips) == 1 else b"".join(strips)
         n = h * w * spp
         if bits == 8:
             data = np.frombuffer(payload, np.uint8, count=n).astype(np.float32)
         elif len(payload) >= 2 * n:
-            data = np.frombuffer(
-                payload, np.dtype(endian + "u2"), count=n
-            ).astype(np.float32)
+            # 16-bit codes stay uint16 in host byte order: no copy where the
+            # file's order is the host's (torch takes no other order).
+            data = np.frombuffer(payload, np.dtype(endian + "u2"), count=n).astype(
+                "=u2", copy=False
+            )
         elif bits == 12 and len(payload) * 2 >= 3 * n:
             # NEF/ORF-style bit-packed strips (inferred from byte counts).
             data = _unpack_12bit(payload, n).astype(np.float32)
@@ -610,7 +614,7 @@ def _read_tiff_raw(buf: bytes, path: str) -> RawImage:
             # size-based detection).
             from raw2film_tpu_torch.native import decode_orf
 
-            data = decode_orf(payload, w, h).astype(np.float32)
+            data = decode_orf(bytes(payload), w, h).astype(np.float32)
         else:
             raise NotImplementedError(
                 f"{path}: cannot infer sample packing "

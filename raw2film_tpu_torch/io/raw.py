@@ -72,12 +72,13 @@ def apply_orientation(rgb: torch.Tensor, orientation: int) -> torch.Tensor:
 
 
 def _upload(data: np.ndarray, device) -> torch.Tensor:
-    """The sensor data on the device: uint16 codes as they are, anything
-    else as float32 (what JAX makes of it with 64-bit types off)."""
+    """A copy of the sensor data on the device: uint16 codes as they are
+    (a 16-bit strip's are a read-only view on the file), anything else as
+    float32 (what JAX makes of it with 64-bit types off)."""
     data = np.ascontiguousarray(data)
     if data.dtype != np.uint16:
         data = data.astype(np.float32)
-    return to_device(data, device)
+    return to_device(data, device, copy=True)
 
 
 def decode_raw(raw, half_size: bool = False, demosaic: str = "mhc", device=None) -> torch.Tensor:

@@ -562,7 +562,9 @@ class Processor:
             norm = np.asarray([raw.black_level, inv_range], np.float32)
             mosaic_u16 = np.ascontiguousarray(raw.data)
             if mosaic_u16.dtype != np.uint16:
-                # Integral sensor codes held as float (RAF, RW2) upload as u16.
+                # Integral sensor codes held as float (RAF, RW2, packed or
+                # compressed TIFF) upload as u16; a 16-bit strip is u16 already.
+                count("prep.integral_check")
                 as_u16 = mosaic_u16.astype(np.uint16)
                 if (
                     mosaic_u16.min() >= 0.0
@@ -576,7 +578,8 @@ class Processor:
                 else np.eye(3)
             ).astype(np.float32)
             with stage_timer("prep.upload"):
-                mosaic = to_device(mosaic_u16, self.device)
+                # A copy: a 16-bit strip is a read-only view on the file.
+                mosaic = to_device(mosaic_u16, self.device, copy=True)
             # The staged path estimates exposure on the whole decoded frame,
             # before the aspect crop; so does this, on the device (K15).
             with stage_timer("prep.exposure", device=mosaic):

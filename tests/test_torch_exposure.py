@@ -10,11 +10,15 @@
 - The wrapper on CPU tensors: the host estimate bit for bit.
 - A fused ``process()`` on the CPU: the uint8 frame the fused path gave
   before the estimate moved onto the uploaded mosaic.
+- The prep's host integral check (counter ``prep.integral_check``): not
+  run on a 16-bit strip, which the reader hands over as uint16; run once
+  on integral float32 codes; the same codes uploaded either way.
 - The aspect crop cut from a tensor: the host crop's window and values.
 
 K15 itself is held to the host estimate on the card in
 tests/test_torch_cuda.py."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -27,6 +31,7 @@ from raw2film_tpu_torch.io import dng
 from raw2film_tpu_torch.io.raw import calc_exposure, exif_factor
 from raw2film_tpu_torch.ops import demosaic as dm
 from raw2film_tpu_torch.pipeline import processor as tproc
+from raw2film_tpu_torch.utils import trace
 from test_torch_processor import ASPECTS, SHAPES
 
 STOCKS = dict(negative_film="Kodak Portra 400", print_film="Fuji Crystal Archive Maxima")
@@ -174,6 +179,23 @@ def test_fused_process_on_the_cpu_is_unchanged(tmp_path, monkeypatch, frame_heig
     old = Processor(device="cpu")
     monkeypatch.setattr(old, "_try_load_mosaic_impl", lambda src, load_kw: before)
     np.testing.assert_array_equal(out, old.process(path, **kw))
+
+
+@pytest.mark.parametrize("as_float", [False, True], ids=["u16-strip", "integral-float32"])
+def test_prep_checks_only_float_codes(tmp_path, as_float):
+    path = str(tmp_path / "f.dng")
+    dng.write_dng(path, _codes(96, 144, 5), black_level=512, white_level=24000)
+    kw = dict(STOCKS, seed=4, half_size=False, max_scale=None, cache=False)
+    src = path
+    if as_float:  # the RAF and RW2 readers' integral float32 codes
+        raw = dng.read_raw(path)
+        src = dataclasses.replace(raw, data=raw.data.astype(np.float32))
+    proc = Processor(device="cpu")
+    before = trace.COUNTS.get("prep.integral_check", 0)
+    (mosaic, *_), _ = proc._try_load_mosaic_impl(src, kw)
+    assert trace.COUNTS.get("prep.integral_check", 0) - before == int(as_float)
+    assert mosaic.dtype == torch.uint16
+    np.testing.assert_array_equal(mosaic.numpy(), _prep_before(path, 24.0)[0][0])
 
 
 @pytest.mark.parametrize("aspect", ASPECTS)
