@@ -160,22 +160,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
-    import dataclasses as _dc
-
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The command line parsed, every profile, image and lens flag holding
+    its value, and ``overrides``: the ones given explicitly, which override
+    the folder sidecar (untouched ones must not: the reference's merge order
+    is defaults < profile < per-image < explicit flags)."""
     from raw2film_tpu_torch.pipeline.params import ImageParams, ProfileParams
 
-    # Die quietly when stdout is a closed pipe (`raw2film-tpu --list-stocks
-    # | head`) instead of tracebacking on BrokenPipeError.
-    if hasattr(signal, "SIGPIPE"):
-        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
-
     args = build_parser().parse_args(argv)
-    # Split explicit schema flags (they override the sidecar) from
-    # untouched ones (restored to defaults for direct args.X uses below).
     cli_over = {}
     for dc in (ProfileParams(), ImageParams()):
-        for f in _dc.fields(dc):
+        for f in dataclasses.fields(dc):
             if hasattr(args, f.name):
                 cli_over[f.name] = getattr(args, f.name)
             else:
@@ -190,13 +185,134 @@ def main(argv: list[str] | None = None) -> int:
             None if cli_over["print_film"] in (None, "", "None")
             else cli_over["print_film"]
         )
+    args.overrides = cli_over
+    return args
 
-    from raw2film_tpu_torch.film.loader import load_film_stocks
-    from raw2film_tpu_torch.pipeline.batch import BatchRunner, export_path, scan_raw_files
-    from raw2film_tpu_torch.pipeline.params import ImageParams, ProfileParams, merge_params
+
+def export_files(args: argparse.Namespace, files: list[str], processor=None, export=None) -> list:
+    """Render ``files`` at ``args`` (from :func:`parse_args`) and export
+    them, as ``main`` does: a pool of ``args.jobs`` threads reads the RAWs
+    ahead of the device (``BatchRunner``), and each image renders with the
+    defaults, then its input folder's sidecar profile and per-image
+    settings, then the explicit flags. ``processor``: the ``Processor`` to
+    render with (default: a new one on ``args.device``). ``export(image,
+    src) -> dst``: what becomes of each uint8 (H, W, 3) image (default: it
+    is saved under ``args.output``). Returns the ``BatchResult``s in file
+    order."""
+    from raw2film_tpu_torch.io.export import save_image
+    from raw2film_tpu_torch.pipeline.batch import BatchRunner, export_path
+    from raw2film_tpu_torch.pipeline.params import merge_params
     from raw2film_tpu_torch.pipeline.processor import Processor
     from raw2film_tpu_torch.pipeline.settings import load_folder_settings
-    from raw2film_tpu_torch.io.export import save_image
+
+    sidecar_images: dict = {}
+    sidecar_profiles: dict = {}
+    for inp in args.inputs:
+        if os.path.isdir(inp):
+            profs, imgs = load_folder_settings(inp)
+            sidecar_profiles.update(profs)
+            sidecar_images.update(imgs)
+
+    icc_transform = None
+    if args.softproof_profile or args.display_profile:
+        from raw2film_tpu_torch.io import icc as icc_mod
+
+        if args.softproof_profile:
+            icc_transform = icc_mod.build_softproof_transform(
+                args.softproof_profile, args.display_profile
+            )
+        else:
+            icc_transform = icc_mod.build_transform(args.display_profile)
+        if icc_transform is None:
+            print(
+                "warning: ICC support unavailable (PIL.ImageCms missing); "
+                "profiles ignored",
+                file=sys.stderr,
+            )
+
+    proc = processor if processor is not None else Processor(device=args.device)
+    meta_by_src: dict[str, dict] = {}
+
+    def decode(src, **params):
+        # Container parse + bitstream decode — the expensive host half —
+        # runs in BatchRunner's worker pool ahead of the device.
+        from raw2film_tpu_torch.io.dng import read_raw
+        from raw2film_tpu_torch.utils.trace import stage_timer
+
+        with stage_timer("read"):
+            return (str(src), read_raw(str(src)))
+
+    def process(payload, **params):
+        src, raw = payload if isinstance(payload, tuple) else (payload, None)
+        # Reference merge order (gui.py:2181-2195): schema defaults, the
+        # image's sidecar profile, its per-image sidecar params, then ONLY
+        # explicitly-passed CLI flags on top.
+        img_sc = sidecar_images.get(os.path.basename(src)) or {}
+        prof = sidecar_profiles.get(img_sc.get("profile", ""))
+        merged = merge_params(prof, img_sc, **params)
+        merged.pop("profile", None)
+        from raw2film_tpu_torch.pipeline.params import apply_film_format
+
+        apply_film_format(merged)
+        # Dynamic non-schema keys (sidecar-stored by the viewer, or the
+        # --lens / --lens-correction flags): same precedence as above.
+        lens_kw = {
+            k: params.get(k, img_sc.get(k))
+            for k in ("lens_correction", "lens")
+            if k in params or k in img_sc
+        }
+        if lens_kw.get("lens"):
+            proc.register_lens(lens_kw["lens"])
+        out = proc.process(
+            raw if raw is not None else src,
+            merged.pop("negative_film"),
+            print_film=merged.pop("print_film"),
+            half_size=not args.full_res,
+            max_scale=None if args.full_res else 400.0,
+            seed=args.seed,
+            icc_transform=icc_transform,
+            **lens_kw,
+            **merged,
+        )
+        # Metadata comes back through the Processor (single decode).
+        meta_by_src[str(src)] = getattr(proc, "last_metadata", {}) or {}
+        return out
+
+    def save(image, src):
+        dst = export_path(
+            src, args.output, args.organize_by_date, ext=args.ext
+        )
+        save_image(
+            image,
+            dst,
+            quality=args.quality,
+            metadata=meta_by_src.get(str(src), {}),
+            exp_comp=args.exp_comp,
+        )
+        if args.archive_raw != "none":
+            from raw2film_tpu_torch.pipeline.batch import archive_raw
+
+            archive_raw(str(src), args.output, args.archive_raw)
+        return dst
+
+    jobs = args.jobs or min(4, os.cpu_count() or 1)
+    runner = BatchRunner(process, export or save, decode_fn=decode, workers=jobs)
+    return runner.run(
+        [(f, dict(args.overrides)) for f in files],
+        progress=lambda done, total: print(f"[{done}/{total}]", flush=True),
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    # Die quietly when stdout is a closed pipe (`raw2film-tpu --list-stocks
+    # | head`) instead of tracebacking on BrokenPipeError.
+    if hasattr(signal, "SIGPIPE"):
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+
+    args = parse_args(argv)
+
+    from raw2film_tpu_torch.film.loader import load_film_stocks
+    from raw2film_tpu_torch.pipeline.batch import scan_raw_files
 
     if args.import_lensfun:
         from raw2film_tpu_torch.io.lensfun_convert import convert_lensfun_db
@@ -314,16 +430,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     files: list[str] = []
-    sidecar_images: dict = {}
-    sidecar_profiles: dict = {}
     for inp in args.inputs:
-        if os.path.isdir(inp):
-            files.extend(scan_raw_files(inp))
-            profs, imgs = load_folder_settings(inp)
-            sidecar_profiles.update(profs)
-            sidecar_images.update(imgs)
-        else:
-            files.append(inp)
+        files.extend(scan_raw_files(inp) if os.path.isdir(inp) else [inp])
     if not files:
         print("no RAW inputs found", file=sys.stderr)
         return 2
@@ -351,90 +459,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"unknown print stock {args.print_film!r}; see --list-stocks", file=sys.stderr)
         return 2
 
-    icc_transform = None
-    if args.softproof_profile or args.display_profile:
-        from raw2film_tpu_torch.io import icc as icc_mod
-
-        if args.softproof_profile:
-            icc_transform = icc_mod.build_softproof_transform(
-                args.softproof_profile, args.display_profile
-            )
-        else:
-            icc_transform = icc_mod.build_transform(args.display_profile)
-        if icc_transform is None:
-            print(
-                "warning: ICC support unavailable (PIL.ImageCms missing); "
-                "profiles ignored",
-                file=sys.stderr,
-            )
-
-    proc = Processor(device=args.device)
-    meta_by_src: dict[str, dict] = {}
-
-    def decode(src, **params):
-        # Container parse + bitstream decode — the expensive host half —
-        # runs in BatchRunner's worker pool ahead of the device.
-        from raw2film_tpu_torch.io.dng import read_raw
-        from raw2film_tpu_torch.utils.trace import stage_timer
-
-        with stage_timer("read"):
-            return (str(src), read_raw(str(src)))
-
-    def process(payload, **params):
-        src, raw = payload if isinstance(payload, tuple) else (payload, None)
-        # Reference merge order (gui.py:2181-2195): schema defaults, the
-        # image's sidecar profile, its per-image sidecar params, then ONLY
-        # explicitly-passed CLI flags on top.
-        img_sc = sidecar_images.get(os.path.basename(src)) or {}
-        prof = sidecar_profiles.get(img_sc.get("profile", ""))
-        merged = merge_params(prof, img_sc, **params)
-        merged.pop("profile", None)
-        from raw2film_tpu_torch.pipeline.params import apply_film_format
-
-        apply_film_format(merged)
-        # Dynamic non-schema keys (sidecar-stored by the viewer, or the
-        # --lens / --lens-correction flags): same precedence as above.
-        lens_kw = {
-            k: params.get(k, img_sc.get(k))
-            for k in ("lens_correction", "lens")
-            if k in params or k in img_sc
-        }
-        if lens_kw.get("lens"):
-            proc.register_lens(lens_kw["lens"])
-        out = proc.process(
-            raw if raw is not None else src,
-            merged.pop("negative_film"),
-            print_film=merged.pop("print_film"),
-            half_size=not args.full_res,
-            max_scale=None if args.full_res else 400.0,
-            seed=args.seed,
-            icc_transform=icc_transform,
-            **lens_kw,
-            **merged,
-        )
-        # Metadata comes back through the Processor (single decode).
-        meta_by_src[str(src)] = getattr(proc, "last_metadata", {}) or {}
-        return out
-
-    def export(image, src):
-        dst = export_path(
-            src, args.output, args.organize_by_date, ext=args.ext
-        )
-        save_image(
-            image,
-            dst,
-            quality=args.quality,
-            metadata=meta_by_src.get(str(src), {}),
-            exp_comp=args.exp_comp,
-        )
-        if args.archive_raw != "none":
-            from raw2film_tpu_torch.pipeline.batch import archive_raw
-
-            archive_raw(str(src), args.output, args.archive_raw)
-        return dst
-
-    jobs = args.jobs or min(4, os.cpu_count() or 1)
-    runner = BatchRunner(process, export, decode_fn=decode, workers=jobs)
     if args.trace:
         from raw2film_tpu_torch.utils import trace
 
@@ -442,10 +466,7 @@ def main(argv: list[str] | None = None) -> int:
         trace.enable()
     t0 = time.perf_counter()
     try:
-        results = runner.run(
-            [(f, dict(cli_over)) for f in files],
-            progress=lambda done, total: print(f"[{done}/{total}]", flush=True),
-        )
+        results = export_files(args, files)
     finally:
         if args.trace:
             print("\n".join(trace.summary()))

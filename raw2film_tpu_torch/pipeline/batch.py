@@ -1,11 +1,16 @@
-"""Batch export engine: host decode prefetch feeding device batch renders.
+"""Batch export engine: a host decode pool feeding ``process()`` in order.
 
 The reference overlaps CPU RAW decode with GPU rendering through a
 depth-1 producer/consumer queue (reference: src/raw2film/gui_objects.py:
-65-115, wired at gui.py:2393-2444). Here the same overlap is an input
-pipeline: a thread pool decodes and preprocesses RAWs ahead of the device,
-images are bucketed by resolution so each bucket renders as one vmapped
-(and, with >1 device, batch-sharded) call, and exports drain asynchronously.
+65-115, wired at gui.py:2393-2444). Here a pool of threads reads (decodes)
+the RAWs ahead of the device, and the calling thread takes them in
+submission order, renders each with ``process_fn`` and exports it; a
+bounded queue holds the decoded items, so the pool waits when it is
+``prefetch`` items ahead.
+
+Traced, one ``run`` is the request root ``roll``: the pool's decodes join
+its tree (``trace.adopted``), each wait of the renderer on the queue is the
+span ``roll.wait``, and each item taken counts ``roll.frames``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from collections.abc import Callable, Iterable
 
 import numpy as np
 
+from raw2film_tpu_torch.utils import trace
 from raw2film_tpu_torch.utils.trace import stage_timer
 
 
@@ -66,14 +72,19 @@ class BatchRunner:
         tasks: Iterable[tuple[str, dict]],
         progress: Callable[[int, int], None] | None = None,
     ) -> list[BatchResult]:
-        tasks = list(tasks)
+        with stage_timer("roll") as root:
+            return self._run(list(tasks), progress, root)
+
+    def _run(self, tasks: list, progress, root) -> list[BatchResult]:
+        """:meth:`run` inside its span ``root`` (None while not recording)."""
         results: list[BatchResult] = []
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
 
         def _safe_decode(src, params):
             try:
-                return self.decode_fn(src, **params), None
+                with trace.adopted(root):
+                    return self.decode_fn(src, **params), None
             except Exception as e:  # decode failures skip the item
                 return None, str(e)
 
@@ -119,9 +130,11 @@ class BatchRunner:
 
         done = 0
         while True:
-            item = q.get()
+            with stage_timer("roll.wait"):
+                item = q.get()
             if item is sentinel:
                 break
+            trace.count("roll.frames")
             src, params, payload, err = item
             if self._cancel.is_set():
                 break

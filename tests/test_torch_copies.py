@@ -13,7 +13,9 @@ counters under a lock, copy helpers, recording off by default, statistics
 over every call since the reset: its imports and definitions replace the
 original's), ``io/thumbnail.py``'s
 decode fallback copies its tensor to the host on the caller's device,
-``pipeline/batch.py`` drops its unused JAX imports,
+``pipeline/batch.py`` drops its unused JAX imports and says what its
+``BatchRunner`` does, whose ``run`` is traced as one ``roll`` request (the
+pool's reads adopted into it: its ``trace`` import),
 ``io/dng.py``'s ``_read_tiff_raw`` keeps a 16-bit strip's codes as uint16
 in host byte order (a view on the file's bytes where the file's order is
 the host's) where the original casts them to float32, so the fused prep
@@ -21,8 +23,9 @@ uploads them as they are (the other sample formats still come back as
 float32),
 ``parallel/distributed.py`` joins a torch.distributed group and renders
 over its own mesh (its file-list split is the copy), the CLI takes
-``--device`` and the port's name, and the viewer builds its Processor on
-that device and reports torch from ``/api/about``. Then the copies are held to the originals by what they compute:
+``--device`` and the port's name, and its export is a function of its own
+(``parse_args``, ``export_files``) that ``main`` calls, and the viewer
+builds its Processor on that device and reports torch from ``/api/about``. Then the copies are held to the originals by what they compute:
 the film stocks, the chain parameters, and ``read_raw`` of RAW fixtures.
 """
 
@@ -75,12 +78,12 @@ EXCEPT = {
     },
     "io/thumbnail.py": {"extract_thumb"},
     "io/dng.py": {"_read_tiff_raw"},
-    "pipeline/batch.py": {"jax", "jax.numpy"},
+    "pipeline/batch.py": {"jax", "jax.numpy", "__doc__", "raw2film_tpu_torch.utils", "BatchRunner"},
     "parallel/distributed.py": {
         "__doc__", "numpy", "jax", "jax.numpy", "jax.sharding", "torch", "torch.distributed",
         "init_process", "distributed_batch_render",
     },
-    "cli.py": {"__doc__", "build_parser", "main"},
+    "cli.py": {"__doc__", "build_parser", "parse_args", "export_files", "main"},
     "viewer.py": {"__doc__", "ViewerState", "_PAGE", "make_handler", "serve"},
 }
 
