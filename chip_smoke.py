@@ -81,7 +81,10 @@
    ``process_batch`` over a 2 x 2 mesh on the two DNGs of (l), and two
    processes of this script (``--gloo-worker``) in a gloo group, both on
    cuda:0, each output equal to this process's render;
-10. prints one JSON line of per-kernel results, then {"ok": true, "device":
+10. (o) times the downloads of a 45 MP uint8 frame (134.74 MB) and a 24 MP
+   preview frame at 30 px/mm (18.0 MB) through ``utils/trace.py::to_host``
+   beside ``.cpu()``, in turns, each equal to ``.cpu()``'s and page-locked;
+11. prints one JSON line of per-kernel results, then {"ok": true, "device":
    {...}} as its last line.
 
 Any failed check ends the script with a traceback and a non-zero exit.
@@ -125,6 +128,7 @@ from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
 from raw2film_tpu_torch.pipeline import geometry
 from raw2film_tpu_torch.pipeline import processor as tproc
 from raw2film_tpu_torch.pipeline.render import build_render_config
+from raw2film_tpu_torch.utils import trace
 
 H, W = 5472, 8208
 SEED = 20261016
@@ -1404,6 +1408,32 @@ def sep_conv_phase(device, cfg, card: str) -> tuple[dict, dict]:
     return launches, {"ms": statistics.median(times), "all_ms": times}
 
 
+def download_phase(device, card: str) -> dict:
+    """(o): the export's and the preview's uint8 frames down through
+    ``to_host`` (page-locked, from torch's caching host allocator) and
+    through ``.cpu()`` (pageable), in 10 turns (``in_turns``: the CUDA
+    event pair around each blocking copy)."""
+    out = {}
+    g = torch.Generator(device=device).manual_seed(15)
+    for name, shape in (("export_45mp", (3, H, W)), ("preview_24mp", (3, 2000, 3000))):
+        frame = torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=g)
+        got = trace.to_host(frame)
+        if not (got.is_pinned() and torch.equal(got, frame.cpu())):
+            raise AssertionError(f"{name}: to_host gave pinned={got.is_pinned()} or other bytes than .cpu()")
+        del got
+        times = in_turns({"to_host": lambda: trace.to_host(frame), "cpu": frame.cpu}, rounds=10, per=1)
+        nbytes = frame.numel()
+        out[name] = {"bytes": nbytes, "is_pinned": True, **times,
+                     "to_host_gb_per_s": nbytes / times["to_host"] / 1e6,
+                     "cpu_gb_per_s": nbytes / times["cpu"] / 1e6}
+        print(f"download {name} ({nbytes} B) on {card}: to_host {times['to_host']!r} ms "
+              f"(is_pinned True), .cpu() {times['cpu']!r} ms")
+    out["host_memory_stats"] = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                                if k in ("allocated_bytes.current", "num_host_alloc")}
+    print(f"host_memory_stats: {out['host_memory_stats']}")
+    return out
+
+
 def host_ms(fn, sync: bool = True) -> tuple[object, float]:
     """(fn(), host ms), with a device synchronize before the clock stops."""
     t0 = time.perf_counter()
@@ -2093,6 +2123,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_launches, sep_conv_timing = sep_conv_phase(device, cfg, card)
     add(phase_launches)
+    download_timing = download_phase(device, card)
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was launched no time on the main paths")
@@ -2114,7 +2145,7 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels, "main_path": timing, "halation_off": timing_off,
         "process": process_timing, "preview": previews, "sep_conv_rank": sep_conv_timing,
-        "icc": icc_timing, "cli": cli_timing, "viewer": viewer_timing, "mesh": mesh_timing, "card": card,
+        "icc": icc_timing, "cli": cli_timing, "viewer": viewer_timing, "mesh": mesh_timing, "download": download_timing, "card": card,
     }))
     print(card_line())
     print(json.dumps({

@@ -34,7 +34,8 @@ The log keeps every span until :func:`reset_stats`. The running totals
 and the copies made by :func:`to_host` and :func:`to_device`: between the
 host and a device (``copy.d2h.n``, ``copy.d2h.bytes``, ``copy.h2d.n``,
 ``copy.h2d.bytes``) and from one device to another (``copy.d2d.n``,
-``copy.d2d.bytes``).
+``copy.d2d.bytes``); of the copies down, those that land in page-locked
+memory (``copy.d2h.pinned.n``, ``copy.d2h.pinned.bytes``).
 """
 
 from __future__ import annotations
@@ -221,12 +222,34 @@ def on_host(t: torch.Tensor) -> bool:
     return t.is_cpu
 
 
+PINNED_MIN_BYTES = 1 << 20  # a CUDA tensor this large comes down into page-locked memory
+
+
 def to_host(t: torch.Tensor) -> torch.Tensor:
-    """``t.cpu()``, counted as a device-to-host copy when ``t`` is on a device."""
-    if not on_host(t):
-        count("copy.d2h.n")
-        count("copy.d2h.bytes", t.numel() * t.element_size())
-    return t.cpu()
+    """``t`` on the host, counted as a device-to-host copy when ``t`` is on a
+    device.
+
+    A CUDA tensor of ``PINNED_MIN_BYTES`` or more lands in a new contiguous
+    tensor of page-locked memory from torch's caching host allocator, by a
+    blocking copy on its device's current stream (counted as well as
+    ``copy.d2h.pinned.{n,bytes}``): DMA at the link's speed, where a pageable
+    copy goes through small staging buffers at a fraction of it. The
+    block goes back to the allocator's cache when the result (or a numpy view
+    of it) is dropped, and the next copy of its size reuses it. Anything else
+    is ``t.cpu()``: a host tensor as itself, a small fetch unpinned, since a
+    pinned block costs more than an 8-byte copy saves."""
+    if on_host(t):
+        return t.cpu()
+    nbytes = t.numel() * t.element_size()
+    count("copy.d2h.n")
+    count("copy.d2h.bytes", nbytes)
+    if t.device.type != "cuda" or nbytes < PINNED_MIN_BYTES:
+        return t.cpu()
+    count("copy.d2h.pinned.n")
+    count("copy.d2h.pinned.bytes", nbytes)
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
 
 
 def to_device(x, device, dtype=None, copy: bool = False) -> torch.Tensor:

@@ -75,6 +75,7 @@ EXCEPT = {
         "_SPAN_IDS", "_REQUEST_IDS", "enable", "recording", "_Off", "_OFF", "_stack", "Span",
         "_event_pair", "stage_timer", "count", "on_host", "to_host", "to_device", "requests",
         "stage_stats", "summary", "reset_stats", "_COUNT_LOCK", "current", "adopted",
+        "PINNED_MIN_BYTES",
     },
     "io/thumbnail.py": {"extract_thumb"},
     "io/dng.py": {"_read_tiff_raw"},

@@ -5,7 +5,8 @@ trace, recording on gives ``process()`` one tree of the layers it crossed,
 the copy helpers count only crossings between the host and a device, and
 the launch counts are the ``launch.<kernel>`` counters. On the card
 (``-m cuda``), the copy counters of a fused ``process()`` match its bytes
-and K15 runs once; a cached repeat copies nothing up.
+and K15 runs once; a cached repeat copies nothing up; a copy down of 1 MiB
+or more lands in page-locked memory, equal to ``.cpu()``'s.
 
 Every test leaves recording off and the log empty (``_recording_off``)."""
 
@@ -216,6 +217,18 @@ def test_copy_helpers_count_only_crossings(monkeypatch):
     assert trace.COUNTS == {"copy.h2d.n": 1, "copy.h2d.bytes": 240, "copy.d2h.n": 1, "copy.d2h.bytes": 14}
 
 
+def test_to_host_pins_only_large_cuda_copies(monkeypatch):
+    """A host tensor comes back as itself, uncounted. The test of a pinned
+    landing is the device type, not ``on_host``: a 2 MiB CPU tensor taken
+    for a device's is counted as a copy down and still takes ``.cpu()``,
+    never ``pin_memory`` (which a CPU-only torch cannot serve)."""
+    host = torch.zeros(2 << 20, dtype=torch.uint8)
+    assert trace.to_host(host) is host and trace.COUNTS == {}
+    monkeypatch.setattr(trace, "on_host", lambda t: False)
+    assert trace.to_host(host) is host  # a pinned landing would be a new tensor
+    assert trace.COUNTS == {"copy.d2h.n": 1, "copy.d2h.bytes": 2 << 20}
+
+
 def test_launch_counts_are_the_launch_counters():
     before = dict(kb.launches)
     assert list(before) == list(kb.KERNELS)
@@ -317,3 +330,40 @@ def test_copy_counters_of_a_fused_process_on_the_card(tmp_path):
     counts, _ = traced_counts(seed=3)
     assert "copy.h2d.bytes" not in counts and "launch.exposure_sample" not in counts
     assert counts["copy.d2h.bytes"] == h * w * 3
+
+
+@pytest.mark.cuda
+def test_large_copies_down_land_in_pinned_memory():
+    """On the card: ``to_host`` equals ``.cpu()`` bit for bit (a contiguous
+    45 MP uint8 frame, a float32 XYZ, a strided view of its green plane);
+    a copy of 1 MiB or more is page-locked and counted as pinned once, one
+    byte less is neither; a same-size copy after the first is released
+    reuses the cached block."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: page-locked landings are made only from a CUDA tensor")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    frame = torch.randint(0, 256, (3, 5472, 8208), dtype=torch.uint8, device="cuda", generator=gen)
+    xyz = torch.rand((3, 2000, 3000), device="cuda", generator=gen)
+    for t in (frame, xyz, xyz[1, ::2, ::2]):
+        got = trace.to_host(t)
+        assert got.is_pinned() and got.is_contiguous() and got.dtype == t.dtype
+        assert torch.equal(got, t.cpu())
+    nbytes = [t.numel() * t.element_size() for t in (frame, xyz, xyz[1, ::2, ::2])]
+    assert trace.COUNTS["copy.d2h.pinned.n"] == trace.COUNTS["copy.d2h.n"] == 3
+    assert trace.COUNTS["copy.d2h.pinned.bytes"] == trace.COUNTS["copy.d2h.bytes"] == sum(nbytes)
+
+    trace.reset_stats()
+    at = torch.ones(trace.PINNED_MIN_BYTES, dtype=torch.uint8, device="cuda")
+    below = at[1:]
+    assert trace.to_host(at).is_pinned() and not trace.to_host(below).is_pinned()
+    assert trace.COUNTS["copy.d2h.pinned.n"] == 1 and trace.COUNTS["copy.d2h.n"] == 2
+    assert trace.COUNTS["copy.d2h.pinned.bytes"] == trace.PINNED_MIN_BYTES
+
+    first = trace.to_host(frame).numpy().transpose(1, 2, 0)  # what a caller keeps
+    del first
+    before = torch.cuda.host_memory_stats()
+    again = trace.to_host(frame)
+    after = torch.cuda.host_memory_stats()
+    assert again.is_pinned()
+    assert after["num_host_alloc"] == before["num_host_alloc"]
+    assert after["allocated_bytes.current"] <= before["allocated_bytes.current"]
