@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from raw2film_tpu_torch.device import disable_tf32, require_cuda
-from raw2film_tpu_torch.film import chain as fchain
 from raw2film_tpu_torch.film import loader
 from raw2film_tpu_torch.film import stock as stock_mod
 from raw2film_tpu_torch.io import dng
@@ -55,8 +54,9 @@ from raw2film_tpu_torch.ops.demosaic import exposure_power_mean
 from raw2film_tpu_torch.ops.resize import resolution_scaling
 from raw2film_tpu_torch.pipeline import canvas, geometry
 from raw2film_tpu_torch.pipeline.render import (
+    BUNDLE_KEYS,
+    build_film_bundle,
     build_render_config,
-    make_film_bundle,
     render_chain,
     render_chain_from_mosaic,
 )
@@ -176,12 +176,6 @@ def _file_key(src):
     return path, st.st_mtime_ns, st.st_size
 
 
-_BUNDLE_KEYS = (
-    "exp_kelvin", "tint", "exp_comp", "push_pull", "color_masking", "red_light",
-    "green_light", "blue_light", "projector_kelvin", "shadow_comp", "sat_adjust",
-    "inversion_gamma", "idealized_curve", "white_balance", "white_clip", "gamma_func",
-    "halation_intensity", "halation_green_factor", "highlight_burn",
-)
 _LOAD_KEYS = (
     "frame_width", "frame_height", "rotation", "zoom", "rotate_times", "flip",
     "resolution", "half_size", "chroma_nr", "max_scale", "lens_correction", "cam", "lens",
@@ -304,53 +298,15 @@ class Processor:
         key = {
             "negative_film": negative_film.name,
             "print_film": print_film.name if print_film is not None else None,
-            **{k: merged[k] for k in _BUNDLE_KEYS},
+            **{k: merged[k] for k in BUNDLE_KEYS},
             "inversion": merged.get("inversion", False),
         }
         if key == self._bundle_key:
             return self._bundle
         with stage_timer("bundle"):
             count("bundle.miss")
-            neg_p = fchain.build_negative_params(
-                negative_film, exp_kelvin=merged["exp_kelvin"], tint=merged["tint"],
-                exp_comp=merged["exp_comp"], push_pull=merged["push_pull"],
-                color_masking=merged["color_masking"],
-            )
-            inversion = bool(merged.get("inversion", False)) or (
-                print_film is None and negative_film.film_type == "negative"
-            )
-            prt_p = fchain.build_print_params(
-                negative_film, print_film, red_light=merged["red_light"],
-                green_light=merged["green_light"], blue_light=merged["blue_light"],
-                projector_kelvin=merged["projector_kelvin"], shadow_comp=merged["shadow_comp"],
-                inversion_gamma=merged["inversion_gamma"], idealized_curve=merged["idealized_curve"],
-                inversion=inversion, white_balance=merged["white_balance"], neg_params=neg_p,
-            )
-            out_p = fchain.build_output_params(
-                negative_film, print_film, prt_p, neg_p, projector_kelvin=merged["projector_kelvin"],
-                sat_adjust=merged["sat_adjust"], gamma_func=merged["gamma_func"],
-                white_clip=merged["white_clip"],
-            )
-            d_ref = negative_film.d_ref
-            gm = negative_film.grain
-            d_min, *_ = negative_film.curve.params()
-            lo, hi = float(np.min(d_min)), float(np.max(negative_film.curve.d_max))
-            if hi < lo:
-                lo, hi = hi, lo
-            bundle = make_film_bundle(
-                neg_p, prt_p, out_p,
-                halation_intensity=merged["halation_intensity"],
-                halation_green_factor=merged["halation_green_factor"],
-                highlight_burn=merged["highlight_burn"],
-                d_ref_green=float(d_ref[1] if len(d_ref) > 1 else d_ref[0]),
-                grain_rms=(gm.rms if gm else 0.0),
-                grain_shape=(
-                    (gm.peak_density, gm.width, gm.floor, lo, hi) if gm else (1.0, 1.2, 0.15, 0.0, 4.0)
-                ),
-                sat=merged["sat_adjust"],
-                device=self.device,
-            )
-            self._bundle_key, self._bundle = key, (bundle, prt_p.mode)
+            self._bundle = build_film_bundle(negative_film, print_film, merged, self.device)
+            self._bundle_key = key
             return self._bundle
 
     # ------------------------------------------------------------ process

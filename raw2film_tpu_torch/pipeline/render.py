@@ -45,7 +45,7 @@ from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
 from raw2film_tpu_torch.ops import mtf as mtf_ops
 from raw2film_tpu_torch.ops import print_encode as pe
-from raw2film_tpu_torch.utils.trace import stage_timer, to_device, to_host
+from raw2film_tpu_torch.utils.trace import count, stage_timer, to_device, to_host
 
 
 @dataclass(frozen=True)
@@ -200,6 +200,80 @@ def build_render_config(neg, prt, prt_mode: str, scale: float, merged: dict) -> 
     )
 
 
+# The merged parameters :func:`build_film_bundle` reads: the key of
+# ``Processor.load_film_bundle``'s cache.
+BUNDLE_KEYS = (
+    "exp_kelvin", "tint", "exp_comp", "push_pull", "color_masking", "red_light",
+    "green_light", "blue_light", "projector_kelvin", "shadow_comp", "sat_adjust",
+    "inversion_gamma", "idealized_curve", "white_balance", "white_clip", "gamma_func",
+    "halation_intensity", "halation_green_factor", "highlight_burn",
+)
+
+
+class _Reads(dict):
+    """A dict that notes each key read from it (``read``)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.read = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        self.read.add(key)
+        return super().get(key, default)
+
+
+def build_film_bundle(negative_film, print_film, merged: dict, device) -> tuple[dict, str]:
+    """(bundle on ``device``, print mode) of two stocks (``film/stock.py``;
+    ``print_film`` None for none) under the merged parameters: the
+    calibrated chain (``film/chain.py``) packed by :func:`make_film_bundle`."""
+    from raw2film_tpu_torch.film import chain
+
+    neg_p = chain.build_negative_params(
+        negative_film, exp_kelvin=merged["exp_kelvin"], tint=merged["tint"],
+        exp_comp=merged["exp_comp"], push_pull=merged["push_pull"],
+        color_masking=merged["color_masking"],
+    )
+    inversion = bool(merged.get("inversion", False)) or (
+        print_film is None and negative_film.film_type == "negative"
+    )
+    prt_p = chain.build_print_params(
+        negative_film, print_film, red_light=merged["red_light"],
+        green_light=merged["green_light"], blue_light=merged["blue_light"],
+        projector_kelvin=merged["projector_kelvin"], shadow_comp=merged["shadow_comp"],
+        inversion_gamma=merged["inversion_gamma"], idealized_curve=merged["idealized_curve"],
+        inversion=inversion, white_balance=merged["white_balance"], neg_params=neg_p,
+    )
+    out_p = chain.build_output_params(
+        negative_film, print_film, prt_p, neg_p, projector_kelvin=merged["projector_kelvin"],
+        sat_adjust=merged["sat_adjust"], gamma_func=merged["gamma_func"],
+        white_clip=merged["white_clip"],
+    )
+    d_ref = negative_film.d_ref
+    gm = negative_film.grain
+    d_min, *_ = negative_film.curve.params()
+    lo, hi = float(np.min(d_min)), float(np.max(negative_film.curve.d_max))
+    if hi < lo:
+        lo, hi = hi, lo
+    bundle = make_film_bundle(
+        neg_p, prt_p, out_p,
+        halation_intensity=merged["halation_intensity"],
+        halation_green_factor=merged["halation_green_factor"],
+        highlight_burn=merged["highlight_burn"],
+        d_ref_green=float(d_ref[1] if len(d_ref) > 1 else d_ref[0]),
+        grain_rms=(gm.rms if gm else 0.0),
+        grain_shape=(
+            (gm.peak_density, gm.width, gm.floor, lo, hi) if gm else (1.0, 1.2, 0.15, 0.0, 4.0)
+        ),
+        sat=merged["sat_adjust"],
+        device=device,
+    )
+    return bundle, prt_p.mode
+
+
 def load_film_bundle(
     negative: str = "Kodak Portra 400",
     print_film: str = "Fuji Crystal Archive Maxima",
@@ -210,38 +284,25 @@ def load_film_bundle(
 ) -> tuple[dict, RenderConfig]:
     """(bundle, cfg) for a negative printed on a print stock, at h x w
     pixels on a 36 mm frame; ``params`` override the merged profile and
-    image parameters (e.g. ``halation=False, grain=2, highlight_burn=0.3``).
-    The bundle lies on ``device``, by default the first CUDA device; pass
-    ``device="cpu"`` for the plain versions."""
-    from raw2film_tpu_torch.film import chain, loader
+    image parameters (e.g. ``halation=False, grain=2, highlight_burn=0.3``),
+    built as ``Processor.load_film_bundle`` and :func:`build_render_config`
+    build them. The scene white is 6500 K unless ``exp_kelvin`` says
+    otherwise, as in ``Processor.process``. A key that neither build reads
+    is refused (TypeError). The bundle lies on ``device``, by default the
+    first CUDA device; pass ``device="cpu"`` for the plain versions."""
+    from raw2film_tpu_torch.film import loader
     from raw2film_tpu_torch.pipeline import params as rparams
 
     device = torch.device(device) if device is not None else require_cuda()
     stocks = loader.load_film_stocks()
     neg, prt = stocks[negative], stocks[print_film]
-    neg_p = chain.build_negative_params(neg)
-    prt_p = chain.build_print_params(neg, prt, neg_params=neg_p)
-    out_p = chain.build_output_params(neg, prt, prt_p, neg_p)
     merged = rparams.merge_params(rparams.ProfileParams(), rparams.ImageParams())
-    merged.update(params)
-    gm = neg.grain
-    d_min, *_ = neg.curve.params()
-    bundle = make_film_bundle(
-        neg_p,
-        prt_p,
-        out_p,
-        halation_intensity=float(merged["halation_intensity"]),
-        halation_green_factor=float(merged["halation_green_factor"]),
-        highlight_burn=float(merged["highlight_burn"]),
-        d_ref_green=float(neg.d_ref[1]),
-        grain_rms=gm.rms,
-        grain_shape=(
-            gm.peak_density, gm.width, gm.floor,
-            float(np.min(d_min)), float(np.max(neg.curve.d_max)),
-        ),
-        device=device,
-    )
-    cfg = build_render_config(neg, prt, prt_p.mode, max(h, w) / 36.0, merged)
+    merged = _Reads({**merged, "exp_kelvin": 6500.0, **params})
+    bundle, mode = build_film_bundle(neg, prt, merged, device)
+    cfg = build_render_config(neg, prt, mode, max(h, w) / 36.0, merged)
+    unknown = sorted(set(params) - merged.read)
+    if unknown:
+        raise TypeError(f"load_film_bundle cannot apply {unknown}")
     return bundle, cfg
 
 
@@ -289,7 +350,12 @@ def render_chain(
 
     One call is the span ``render``, with the spans ``render.halation``,
     ``render.develop``, ``render.mtf_grain``, ``render.burn`` and
-    ``render.print`` inside it for the stages that run."""
+    ``render.print`` inside it for the stages that run; ``render.develop``
+    takes the exposure as its device, so with event pairs on it records the
+    plain development's device time. Each call counts how its density was
+    developed: ``develop.fused`` where K14 developed it (halation on the /4
+    mixture tier with identity masking), else ``develop.plain``, one call of
+    :func:`_develop` (halation off, colour masking, or a tier below /4)."""
     with stage_timer("render"):
         return _chain(xyz, bundle, cfg, seed, grain_row_offset, burn_ref_hw, input_is_exposure)
 
@@ -321,11 +387,13 @@ def _chain(xyz, bundle, cfg, seed, grain_row_offset=0, burn_ref_hw=None, input_i
                 ep = (ep + f * blur) / (1.0 + f)
             elif devvec is not None:
                 d = combined  # developed in K14
+                count("develop.fused")
             else:
                 ep = combined
 
     if d is None:
-        with stage_timer("render.develop"):
+        with stage_timer("render.develop", device=ep):
+            count("develop.plain")
             d = _develop(ep, bundle)
 
     mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None

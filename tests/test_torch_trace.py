@@ -2,11 +2,14 @@
 into request trees, a worker thread's span starts its own request, the
 stage statistics cover every call since the reset, recording off leaves no
 trace, recording on gives ``process()`` one tree of the layers it crossed,
-the copy helpers count only crossings between the host and a device, and
-the launch counts are the ``launch.<kernel>`` counters. On the card
+the copy helpers count only crossings between the host and a device, the
+launch counts are the ``launch.<kernel>`` counters, and each render
+counts the route its density took (``develop.plain`` or ``develop.fused``)
+with ``render.develop``'s device the exposure. On the card
 (``-m cuda``), the copy counters of a fused ``process()`` match its bytes
 and K15 runs once; a cached repeat copies nothing up; a copy down of 1 MiB
-or more lands in page-locked memory, equal to ``.cpu()``'s.
+or more lands in page-locked memory, equal to ``.cpu()``'s; the plain
+development's span carries an event pair.
 
 Every test leaves recording off and the log empty (``_recording_off``)."""
 
@@ -241,6 +244,74 @@ def test_launch_counts_are_the_launch_counters():
     assert all(v == 0 for v in kb.launches.values()) and trace.COUNTS["launch.demosaic"] == 0
     with pytest.raises(KeyError):
         kb.launches["no_such_kernel"]
+
+
+# The routes to the density (``render.py::_chain``): K14 develops on the /4
+# mixture tier (the 45 MP frame's 228 px/mm) with identity masking; the plain
+# ``_develop`` runs with halation off, with colour masking, and on the tiers
+# below /4 (halation size 0.5: a 28.5 px glow, the SVD tier).
+DEVELOP_ROUTES = {
+    "halation off": (dict(halation=False), "develop.plain"),
+    "colour masking 0.5": (dict(color_masking=0.5), "develop.plain"),
+    "below the /4 tier": (dict(halation_size=0.5), "develop.plain"),
+    "/4 tier, identity masking": ({}, "develop.fused"),
+}
+NORM = (0.0, 1.0 / 60000.0)  # _mosaic's codes to [0, 1]
+
+
+def _render_small(**params):
+    from raw2film_tpu_torch.data import REC709_TO_XYZ
+    from raw2film_tpu_torch.pipeline.render import load_film_bundle, render_chain_from_mosaic
+
+    bundle, cfg = load_film_bundle(device="cpu", grain=2, sharpness=True, highlight_burn=0.3, **params)
+    codes = _mosaic(64, 384, 4).astype(np.uint16)
+    out = render_chain_from_mosaic(codes, REC709_TO_XYZ, bundle, cfg, 7, norm=NORM, device="cpu")
+    return cfg, out
+
+
+@pytest.mark.parametrize("route", list(DEVELOP_ROUTES))
+def test_each_frame_counts_its_develop_route(route):
+    params, counter = DEVELOP_ROUTES[route]
+    trace.enable(ranges=False)
+    cfg, _ = _render_small(**params)
+    assert cfg.mask_identity == (params.get("color_masking", 1.0) == 1.0)
+    other = "develop.fused" if counter == "develop.plain" else "develop.plain"
+    assert trace.COUNTS.get(counter) == 1 and other not in trace.COUNTS
+    (tree,) = trace.requests()  # counted inside the frame's request tree
+    assert sum((s.counts or {}).get(counter, 0) for s in tree) == 1
+    assert ("render.develop" in _names(tree)) == (counter == "develop.plain")
+
+
+def test_the_develop_span_takes_the_exposure_as_its_device(monkeypatch):
+    from raw2film_tpu_torch.pipeline import render
+
+    given = []
+    timer = render.stage_timer
+    monkeypatch.setattr(render, "stage_timer",
+                        lambda name, device=None: given.append((name, device)) or timer(name, device))
+    _render_small(halation=False)
+    (dev,) = [d for name, d in given if name == "render.develop"]
+    assert isinstance(dev, torch.Tensor) and tuple(dev.shape) == (3, 64, 384)
+
+
+@pytest.mark.cuda
+def test_the_develop_span_records_an_event_pair_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: a span records an event pair only on a CUDA tensor")
+    from raw2film_tpu_torch.data import REC709_TO_XYZ
+    from raw2film_tpu_torch.pipeline.render import load_film_bundle, render_chain_from_mosaic
+
+    bundle, cfg = load_film_bundle(device="cuda", halation=False, grain=2, sharpness=True, highlight_burn=0.3)
+    codes = torch.from_numpy(_mosaic(408, 612, 5).astype(np.uint16))
+    render_chain_from_mosaic(codes, REC709_TO_XYZ, bundle, cfg, 7, norm=NORM)  # builds the kernels
+    trace.enable(ranges=False)
+    render_chain_from_mosaic(codes, REC709_TO_XYZ, bundle, cfg, 8, norm=NORM)
+    torch.cuda.synchronize()
+    (tree,) = trace.requests()
+    (develop,) = [s for s in tree if s.name == "render.develop"]
+    assert develop.events is not None and develop.device_ms() > 0
+    assert sum((s.counts or {}).get("develop.plain", 0) for s in tree) == 1  # the traced frame's
+    assert trace.COUNTS["develop.plain"] == 2 and "develop.fused" not in trace.COUNTS  # both frames
 
 
 class _Blocking:
