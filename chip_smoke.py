@@ -6,7 +6,7 @@
    versions and the TF32 flags; exits non-zero without a CUDA device;
 2. builds the hand-written kernels from ``raw2film_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
-3. checks each of the fifteen kernels against its plain PyTorch version on
+3. checks each of the sixteen kernels against its plain PyTorch version on
    the card (K15, the fused path's exposure sample, against the host
    estimate: the power mean within 2e-6 relative), at small ragged shapes and at the shapes of the paths below,
    and times it beside its bound (the larger of its bytes over 3.35 TB/s
@@ -30,7 +30,11 @@
    tail runs and tiles, 1 tap, above the by-value cap, all-zero taps), at
    45 MP profiled (a failure if one call copies anything from the host to
    the device) and timed in turns with F.conv2d, their scalar path and 1
-   tap, with their registers;
+   tap, with their registers; K16 (the development) on both its paths, with
+   colour masking and a black-and-white negative, profiled at 45 MP (a
+   failure if a call copies anything from the host to the device), timed at
+   45 MP and at the CLI default's 2000 x 3000 beside the plain development,
+   with its registers (a failure on spills);
 4. renders a seeded 5472x8208 uint16 RGGB mosaic through
    ``render_chain_from_mosaic`` (Kodak Portra 400 printed on Fuji Crystal
    Archive Maxima, halation on, grain 2, MTF, burn 0.3), checks how often
@@ -50,8 +54,10 @@
    field alone, K7);
 6. (h) drives ``PreviewEngine`` over that Processor: the full preview of the
    portrait frame at 15 px/mm (540 x 360, where the TPU runs K4) and the
-   simplified preview at 30 px/mm, each frame held to a plain-version
-   engine within 1 code, its histogram equal to a plain count of its frame,
+   simplified preview at 30 px/mm, each render held to a plain-version
+   engine's within 1 code and its float frame (enlarged by Lanczos-5,
+   before the truncation) within what the enlargement makes of those
+   differences, its histogram equal to a plain count of its frame,
    the frame latency timed; (j) runs ``ops/sep_conv.py`` (K5, K6) at 45 MP,
    timed;
 7. times the renders, (a) and (b) end to end and stage by stage, profiles
@@ -125,8 +131,10 @@ from raw2film_tpu_torch.ops import sep_conv, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 from raw2film_tpu_torch.ops.histogram import generate_histogram, histogram_counts, render_histogram
 from raw2film_tpu_torch.ops.lut import apply_lut_3d_cp
+from raw2film_tpu_torch.ops.resize import resolution_scaling, weight_matrix
 from raw2film_tpu_torch.pipeline import geometry
 from raw2film_tpu_torch.pipeline import processor as tproc
+from raw2film_tpu_torch.pipeline import render as trender
 from raw2film_tpu_torch.pipeline.render import build_render_config
 from raw2film_tpu_torch.utils import trace
 
@@ -138,8 +146,9 @@ SEED = 20261016
 # amplify the last-ulp differences of exp2f and FMA contraction.
 # The pyramid resamples sum or lerp a few float32 values (a few ulp of
 # values below 4); halation is held to 1e-5 on exposure and 2e-5 on density
-# (the develop epilogue's log2/exp2 chain); the half-size decode selects and
-# averages two values, bit for bit; the grain applies as K2's epilogue.
+# (the develop epilogue's log2/exp2 chain), as is K16, the same chain; the
+# half-size decode selects and averages two values, bit for bit; the grain
+# applies as K2's epilogue.
 # K15's power mean is held relative to the host estimate's: float32 terms
 # (CUDA's powf against the host's) summed in float64 against numpy's
 # float32 pairwise sum.
@@ -148,11 +157,12 @@ TOL = {
     "pyramid_down": 1e-6, "pyramid_up_rows": 2e-6, "halation": 1e-5, "halation_density": 2e-5,
     "half_size": 0.0, "pyramid_up": 2e-6, "grain_apply": 1e-5, "grain_apply_bw": 1e-5,
     "sep_rank_narrow": 1e-5, "grain_field": 1e-5, "conv_w": 1e-6, "conv_h": 1e-6,
-    "exposure_sample": 2e-6,
+    "exposure_sample": 2e-6, "develop": 2e-5,
 }
 # name -> (the TPU kernel's number, source, the TPU kernel it replaces), in
 # the order of the TPU kernels. K4 is the K2 kernel on the shapes the TPU's
-# K2 declines (ops/sep_rank.py::tpu_declines). K15 replaces a host pass.
+# K2 declines (ops/sep_rank.py::tpu_declines). K15 replaces a host pass, K16
+# the plain development (XLA fuses it on the TPU).
 KERNELS = {
     "demosaic": ("K1", "raw2film_tpu_torch/csrc/demosaic.cu", "raw2film_tpu/ops/pallas_demosaic.py:191"),
     "sep_rank": ("K2", "raw2film_tpu_torch/csrc/sep_rank_grain.cu", "raw2film_tpu/ops/pallas_conv2.py:576"),
@@ -170,6 +180,8 @@ KERNELS = {
     "halation": ("K14", "raw2film_tpu_torch/csrc/halation.cu", "raw2film_tpu/ops/pallas_halation.py:239"),
     "exposure_sample": ("K15", "raw2film_tpu_torch/csrc/demosaic.cu",
                         "none: the fused path's host estimate (raw2film_tpu/pipeline/processor.py:106, :753)"),
+    "develop": ("K16", "raw2film_tpu_torch/csrc/develop.cu",
+                "none: XLA's fusion of raw2film_tpu/pipeline/render.py:264-277"),
 }
 def bound(nbytes: float, flops: float) -> dict:
     """A kernel's least time (``portbench/roofline.py``) and what sets it."""
@@ -187,7 +199,7 @@ def counts(**nonzero) -> dict:
 # blurred on K4.
 LAUNCHES_ON = counts(demosaic=1, pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1,
                      halation=1, print_encode=1)
-LAUNCHES_OFF = counts(demosaic=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
+LAUNCHES_OFF = counts(demosaic=1, develop=1, sep_rank=1, sep_rank_narrow=1, print_encode=1)
 # Device-to-host copies in one profiled 45 MP render: none. The input matrix
 # is folded from the bundle's host copy (m_in_host) and K3 takes the film
 # parameters from theirs (pvec_host).
@@ -195,31 +207,33 @@ D2H_PER_RENDER = 0
 # Processor.process() of the DNG: (overrides of the benchmark settings,
 # launches per render, output shape). Every phase blurs the burn's small map
 # on K4 once; every full-res phase (the fused path) estimates the exposure
-# on K15 once.
+# on K15 once; every phase but (b) develops on K16 (K14 develops on the /4
+# tier alone).
 HALF = (H // 2, W // 2, 3)
 PHASES = {
-    "a": ({}, counts(half_size=1, sep_rank=2, sep_rank_narrow=1, print_encode=1), HALF),
+    "a": ({}, counts(half_size=1, develop=1, sep_rank=2, sep_rank_narrow=1, print_encode=1), HALF),
     "b": (dict(half_size=False, max_scale=None), dict(LAUNCHES_ON, exposure_sample=1), (H, W, 3)),
     "c": (dict(sharpness=False),
-          counts(half_size=1, sep_rank=1, sep_rank_narrow=1, grain_apply=1, print_encode=1), HALF),
+          counts(half_size=1, develop=1, sep_rank=1, sep_rank_narrow=1, grain_apply=1, print_encode=1), HALF),
     "d": (dict(grain=1),
-          counts(half_size=1, sep_rank=2, sep_rank_narrow=1, grain_apply_bw=1, print_encode=1), HALF),
+          counts(half_size=1, develop=1, sep_rank=2, sep_rank_narrow=1, grain_apply_bw=1, print_encode=1), HALF),
     "e": (
         dict(half_size=False, max_scale=None, halation_size=3.0),
         counts(demosaic=1, pyramid_down=2, sep_rank=4, sep_rank_narrow=1, pyramid_up=2, print_encode=1,
-               exposure_sample=1),
+               exposure_sample=1, develop=1),
         (H, W, 3),
     ),
     "f": (
         dict(half_size=False, max_scale=None, frame_height=23.9),
-        counts(demosaic=1, pyramid_down=1, sep_rank=3, sep_rank_narrow=1, print_encode=1, exposure_sample=1),
+        counts(demosaic=1, pyramid_down=1, sep_rank=3, sep_rank_narrow=1, print_encode=1, exposure_sample=1,
+               develop=1),
         (5449, 8207, 3),
     ),
     # chroma NR: its chromaticity blur is one shared rank on K2
-    "g": (dict(chroma_nr=3), counts(half_size=1, sep_rank=3, sep_rank_narrow=1, print_encode=1), HALF),
+    "g": (dict(chroma_nr=3), counts(half_size=1, develop=1, sep_rank=3, sep_rank_narrow=1, print_encode=1), HALF),
     # grain 3: the MTF alone on K2, then the field alone on K7
     "i": (dict(grain=3),
-          counts(half_size=1, sep_rank=2, sep_rank_narrow=1, grain_field=1, print_encode=1), HALF),
+          counts(half_size=1, develop=1, sep_rank=2, sep_rank_narrow=1, grain_field=1, print_encode=1), HALF),
 }
 # PreviewEngine requests (h): (request parameters, launches of the first
 # frame, frame shape). The full preview of the portrait frame renders 540 x
@@ -230,12 +244,12 @@ PHASES = {
 PREVIEWS = {
     "full-15-portrait": (
         dict(full_preview=True, max_scale=15.0, rotate_times=1),
-        counts(half_size=1, sep_rank=1, sep_rank_narrow=2, print_encode=1),
+        counts(half_size=1, develop=1, sep_rank=1, sep_rank_narrow=2, print_encode=1),
         (W // 2, H // 2, 3),
     ),
     "simplified-30": (
         dict(max_scale=30.0),
-        counts(half_size=1, sep_rank_narrow=1, print_encode=1),
+        counts(half_size=1, develop=1, sep_rank_narrow=1, print_encode=1),
         (H // 2, W // 2, 3),
     ),
 }
@@ -1082,6 +1096,67 @@ def check_exposure_sample(device, full_hw) -> dict:
     }
 
 
+def develop_exposure(shape, g, device) -> torch.Tensor:
+    """Exposures over the H&D curve's whole range, with zeros and negatives
+    (the 1e-6 clamp)."""
+    ep = torch.rand(shape, generator=g, device=device) ** 3 * 20.0 - 0.05
+    ep.view(-1)[::7] = 0.0
+    return ep
+
+
+def check_develop(device, full_hw, bundle) -> dict:
+    """K16 against the plain development: both paths (16-byte: H * W a
+    multiple of 4, aligned; 4-byte: W = 1, 3, 5, 8207, H = 1, an unaligned
+    view), the halation-off bundle, colour masking 0.5 and a black-and-white
+    negative; then a profiled call (no host-to-device copy), the 45 MP frame
+    and the CLI default's 2000 x 3000, timed in turns with the plain
+    development beside the bytes bound, and the kernel's registers (a
+    failure on a stack frame or spills)."""
+    g = torch.Generator(device=device).manual_seed(16)
+    films = {
+        "identity": bundle,
+        "masking 0.5": load_film_bundle(device=device, halation=False, color_masking=0.5)[0],
+        "Kodak Tri-X 400": load_film_bundle("Kodak Tri-X 400", device=device, halation=False)[0],
+    }
+    for hw in ((45, 70), (7, 1), (7, 3), (7, 5), (5, 8207), (1, 8208), (1, 5), (1, 1)):
+        ep = develop_exposure((3, *hw), g, device)
+        for fname, b in films.items():
+            expect("develop", max_err(trender._develop(ep, b), plain(trender._develop, ep, b)), TOL["develop"],
+                   f"3x{hw[0]}x{hw[1]} {fname} ({'16-byte' if hw[0] * hw[1] % 4 == 0 else '4-byte'})")
+    ep = develop_exposure((3 * 37 * 76 + 1,), g, device)[1:].view(3, 37, 76)
+    expect("develop", max_err(trender._develop(ep, bundle), plain(trender._develop, ep, bundle)), TOL["develop"],
+           "3x37x76 unaligned view (4-byte)")
+    result, times = None, {}
+    for hw in (full_hw, (2000, 3000)):
+        ep = develop_exposure((3, *hw), g, device)
+        err = max(max_err(trender._develop(ep, b), plain(trender._develop, ep, b)) for b in films.values())
+        expect("develop", err, TOL["develop"], f"3x{hw[0]}x{hw[1]} (16-byte)")
+        launch = lambda: trender._develop(ep, bundle)  # noqa: E731
+        prof = profile_calls(launch, "develop_kernel", 10)
+        if prof["h2d_copies"]:
+            raise AssertionError(f"develop: a launch copied to the device: {prof['h2d_copies']}")
+        turns = in_turns({"kernel": launch, "plain": lambda: plain(trender._develop, ep, bundle)}, 5, 3)
+        px = hw[0] * hw[1]
+        # the exposure in and the density out, 24 B a pixel; 31 operations a
+        # value, as portbench/metrics/develop_roofline.render.py counts them
+        b = bound(24 * px, 31 * 3 * px)
+        times[f"{hw[0]}x{hw[1]}"] = {"ms": turns["kernel"], "plain_ms": turns["plain"],
+                                     "device_ms": prof["device_ms"], "host_ms": prof["host_ms"], **b}
+        print(f"  develop {hw[0]}x{hw[1]}: {turns['kernel']!r} ms in turns (device {prof['device_ms']!r}, "
+              f"host {prof['host_ms']!r}) vs plain {turns['plain']!r} ms, bound {b['bound_ms']!r} ms "
+              f"({b['bound_by']}): {b['bound_ms'] / prof['device_ms'] * 100.0!r} % of it")
+        if result is None:
+            result = {"max_abs_err": err, "ms": turns["kernel"], "plain_ms": turns["plain"], **b,
+                      "library_ms": None, "device_ms": prof["device_ms"]}
+        del ep, launch
+    regs = ptxas_report(r"develop_kernel(?:I\w+?EE)?", "K16")
+    for k, v in regs.items():
+        if v.get("stack", 1) or v.get("spill_stores", 1) or v.get("spill_loads", 1):
+            raise AssertionError(f"{k}: a stack frame or spills: {v}")
+    result["by_frame"], result["registers"] = times, regs
+    return result
+
+
 def check_upsample(device, full_hw) -> dict:
     """Small ragged crops, then the /4 and /8 levels of the 45 MP frame back
     to full size (phase e's shapes), each timed beside F.interpolate; the
@@ -1306,6 +1381,59 @@ class PlainProcessor(Processor):
             return super().process(*args, **kw)
 
 
+def kept_resizes(proc: Processor) -> list:
+    """What ``proc``'s finish resizes from now on, a pair a frame, left on
+    the card: the (3, h, w) float32 render that it enlarges back to the
+    decoded size, and the float32 frame that the enlargement gives, before
+    the clamp and the truncation to uint8."""
+    kept = []
+
+    def resize(img, resolution):
+        out = resolution_scaling(img, resolution)
+        kept.append((img, out))
+        return out
+
+    def finish(*a, **k):
+        tproc.resolution_scaling = resize
+        try:
+            return Processor._finish(proc, *a, **k)
+        finally:
+            tproc.resolution_scaling = resolution_scaling
+
+    proc._finish = finish
+    return kept
+
+
+# Nonzero Lanczos-5 weights of one output in an enlargement (radius 5): 10 or 11.
+LANCZOS_TAPS = 11
+
+
+def enlargement_bound(d_render: torch.Tensor, out_hw) -> torch.Tensor:
+    """How far the finish's enlargement (``ops/resize.py``: Lanczos-5 on
+    each axis that grows) can carry the absolute render differences
+    ``d_render`` ((3, h, w)) into the float frame, at each output. The
+    resize is linear and separable, F = Wy^T r Wx, so a difference of F is
+    at most |Wy|^T |d r| |Wx| (float64 here). Plus the float32 rounding of
+    the two frames (TF32 off): each is two GEMMs of at most LANCZOS_TAPS
+    nonzero terms an output, each pass off by at most LANCZOS_TAPS u (u =
+    2^-24) times the sum of its terms' magnitudes, at most 255 G, G the
+    largest product of the two axes' sums of |weights| of one output; so
+    2 LANCZOS_TAPS u 255 G a frame, twice that for the difference."""
+    (h, w), (oh, ow) = d_render.shape[-2:], out_hw
+    if oh < h or ow < w:
+        raise AssertionError(f"finish: {h}x{w} -> {oh}x{ow} is no enlargement")
+
+    def absw(n_in, n_out):
+        if n_in == n_out:
+            return torch.eye(n_in, dtype=torch.float64, device=d_render.device)
+        return torch.from_numpy(np.abs(weight_matrix(n_in, n_out, "lanczos5")).astype(np.float64)).to(d_render.device)
+
+    wy, wx = absw(h, oh), absw(w, ow)
+    gain = float(wy.sum(0).max() * wx.sum(0).max())
+    rounding = 4 * LANCZOS_TAPS * 2.0**-24 * 255.0 * gain
+    return wy.T @ d_render.double() @ wx + rounding
+
+
 def run_engine(proc, path: str, kw: dict, frames: int) -> tuple[list, list]:
     """``frames`` requests through one PreviewEngine, each awaited: (the
     (image, histogram) frames, the host ms from request to frame)."""
@@ -1329,17 +1457,23 @@ def run_engine(proc, path: str, kw: dict, frames: int) -> tuple[list, list]:
 
 
 def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
-    """(h): one cold frame with exact launch counts, held to a plain-version
-    engine within 1 code, its histogram equal to a plain count of its frame
-    on the host; then the latency of 5 frames after it (the decode cached,
-    as when a slider moves)."""
+    """(h): one cold frame with exact launch counts, its render held to a
+    plain-version engine's within 1 code, and its float frame (that render
+    enlarged back to the decoded size by Lanczos-5, 7.6x for the full
+    preview, before the truncation to uint8) to the plain engine's within
+    what the enlargement makes of the render's differences
+    (:func:`enlargement_bound`); its histogram equal to a plain count of its
+    frame on the host; then the latency of 5 frames after it (the decode
+    cached, as when a slider moves)."""
     params, want, shape = PREVIEWS[name]
     kw = dict(SETTINGS, **params)
     label = f"preview ({name}) {params}"
     proc = Processor(device=device)
+    resizes = kept_resizes(proc)
     torch.cuda.synchronize()
     kb.reset_launches()
     (frame,), (cold,) = run_engine(proc, path, kw, 1)
+    del proc._finish
     launches = dict(kb.launches)
     print(f"{label}: launches {launches}")
     if launches != want:
@@ -1347,12 +1481,25 @@ def preview_phase(device, path: str, name: str, card: str) -> tuple[dict, dict]:
     img, hist = frame
     if img.dtype != np.uint8 or img.shape != shape:
         raise AssertionError(f"{label}: frame {img.dtype} {img.shape}, want {shape}")
-    ref, ref_hist = run_engine(PlainProcessor(device=device), path, kw, 1)[0][0]
+    plain_proc = PlainProcessor(device=device)
+    plain_resizes = kept_resizes(plain_proc)
+    ref, ref_hist = run_engine(plain_proc, path, kw, 1)[0][0]
+    ((got_r, got_f),), ((ref_r, ref_f),) = resizes, plain_resizes
+    d_render = (got_r - ref_r).abs()
+    worst_r = int(d_render.max())
+    # the frame is the float frame clamped to [0, 255], which moves no
+    # difference further apart, then truncated
+    d_frame = (got_f.clamp(0, 255) - ref_f.clamp(0, 255)).abs()
+    limit = enlargement_bound(d_render, tuple(got_f.shape[-2:]))
+    over = int((d_frame.double() > limit).sum())
     diff = np.abs(img.astype(np.int16) - ref.astype(np.int16))
     worst, equal = int(diff.max()), float((diff == 0).mean())
-    print(f"{label} vs a plain-version engine: max {worst} code, {equal!r} of codes equal")
-    if worst > 1:
-        raise AssertionError(f"{label} differs from the plain engine by {worst} codes")
+    print(f"{label} vs a plain-version engine: render {tuple(got_r.shape)} max {worst_r} code; float frame "
+          f"max {float(d_frame.max())!r} (its bound there max {float(limit.max())!r}, {over} values above it); "
+          f"uint8 frame max {worst} code, {equal!r} of codes equal")
+    if worst_r > 1 or over:
+        raise AssertionError(f"{label} differs from the plain engine by {worst_r} codes in the render, "
+                             f"{over} float frame values beyond what the enlargement makes of that")
     host_counts = histogram_counts(torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1))))
     if not np.array_equal(hist, render_histogram(host_counts.numpy(), hist.shape[0])):
         raise AssertionError(f"{label}: the histogram differs from a host count of its frame")
@@ -1756,7 +1903,7 @@ def viewer_phase(device, folder: str, card: str) -> tuple[dict, dict]:
             seq = doc["seq"]
         frame_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(kb.launches)
-        want = counts(half_size=1, print_encode=1)  # the simplified preview, no burn
+        want = counts(half_size=1, develop=1, print_encode=1)  # the simplified preview, no burn
         print(f"viewer (m) frame: launches {launches}, {frame_ms!r} ms from the POST to /api/wait")
         if launches != want:
             raise AssertionError(f"viewer (m): launches {launches}, want {want}")
@@ -1793,8 +1940,8 @@ def viewer_phase(device, folder: str, card: str) -> tuple[dict, dict]:
 SHARD_LAUNCHES = counts(pyramid_down=1, sep_rank=2, sep_rank_narrow=1, pyramid_up_rows=1, halation=1,
                         print_encode=1)
 # A shard of a half-size (CLI default) frame: the SVD glow tier and the MTF
-# + grain on K2, the burn's blur on K4, K3.
-HALF_SHARD_LAUNCHES = counts(sep_rank=2, sep_rank_narrow=1, print_encode=1)
+# + grain on K2, the development on K16, the burn's blur on K4, K3.
+HALF_SHARD_LAUNCHES = counts(sep_rank=2, develop=1, sep_rank_narrow=1, print_encode=1)
 HALF_DECODE = counts(half_size=1)  # per image, before it is sharded
 SPACES = (2, 4, 8)
 SEAM_BAND = 64  # rows gated on each side of a seam
@@ -2069,6 +2216,7 @@ def main() -> int:
     results["exposure_sample"] = check_exposure_sample(device, (H, W))
     results["pyramid_up"] = check_upsample(device, (H, W))
     results["grain_apply"], results["grain_apply_bw"] = check_grain_apply(device, (H, W), cfg)
+    results["develop"] = check_develop(device, (H, W), bundle_off)
     torch.cuda.empty_cache()
 
     codes = mosaic_codes(H, W, SEED, device)

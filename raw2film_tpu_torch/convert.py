@@ -15,15 +15,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from raw2film_tpu_torch.ops.develop import host_params
 from raw2film_tpu_torch.ops.print_encode import PVEC_KEYS
 from raw2film_tpu_torch.pipeline.render import RenderConfig, host_m_in, host_print_vec
+
+
+DEVELOP_KEYS = ("flare", "neg_curve", "d_min", "mask")  # host_params's arguments
 
 
 def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
     """JAX bundle dict -> dict of float32 tensors on ``device``; tuple
     leaves (the H&D curves) stay tuples. Like ``make_film_bundle``'s, a
     bundle with ``m_in`` also holds ``m_in_host``, its copy on the host, and
-    one with the print parameters ``pvec_host``, their packed host copy."""
+    one with the print parameters ``pvec_host``, their packed host copy, and
+    one with the development's ``develop_host``, theirs."""
 
     def leaf(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
@@ -36,6 +41,8 @@ def bundle_from_numpy(jax_bundle: dict, device=None) -> dict:
         out["m_in_host"] = host_m_in(np.asarray(jax_bundle["m_in"]))
     if all(k in jax_bundle for k in PVEC_KEYS):
         out["pvec_host"] = host_print_vec(jax_bundle)
+    if all(k in jax_bundle for k in DEVELOP_KEYS):
+        out["develop_host"] = host_params(*(jax_bundle[k] for k in DEVELOP_KEYS))
     return out
 
 

@@ -8,9 +8,9 @@
 //
 // Built without --use_fast_math: exp2f/log2f are the accurate library forms
 // (2 and 1 ulp), each a 15-28 instruction polynomial. The print tail (K3)
-// and K14's development take their exp2/log2 from the SFU instead
-// (lg2_sfu, ex2_sfu), as do the grain amplitudes of K2, K7 and K8; expe,
-// used by K9's amplitude, stays on the library form.
+// and the development (K14's epilogue, K16) take their exp2/log2 from the
+// SFU instead (lg2_sfu, ex2_sfu), as do the grain amplitudes of K2, K7 and
+// K8; expe, used by K9's amplitude, stays on the library form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +62,41 @@ __device__ __forceinline__ float pow10_(float x) { return ex2_sfu(x * LOG2_10); 
 __device__ __forceinline__ float softplus(float u, float w, float inv_w) {
   const float t = u * inv_w;
   return w * (fmaxf(t, 0.0f) + LN_2 * lg2_sfu(1.0f + ex2_sfu(-fabsf(t) * LOG2_E)));
+}
+
+// The H&D curve's softplus in base 2 (K14's and K16's development): with
+// x = log10(v + flare) = log2(v + flare) log10(2) and t = (x - x0) log2(e) / w,
+// softplus(x - x0, w) = w ln(2) softplus2(t). The caller folds the
+// per-channel factors once, so t is one FMA of log2(v + flare). No operand
+// is subnormal (v + flare >= 1e-6, 1 + 2^-|t| in [1, 2]), so the flush to
+// zero changes nothing.
+__device__ __forceinline__ float softplus2(float t) {
+  return fmaxf(t, 0.0f) + lg2_sfu(1.0f + ex2_sfu(-fabsf(t)));
+}
+
+// One channel's factors of that development: t = l2 k1 + k0 for l2 =
+// log2(v + flare), and the density d_min + g_t softplus2(t_toe) - g_s
+// softplus2(t_shoulder), g = gamma w ln(2). Folded from channel c of the
+// 19-float develop vector [flare, d_min*3, gamma*3, x_toe*3, x_shoulder*3,
+// w_toe*3, w_shoulder*3] (K14's, on the device, per thread; the head of
+// K16's host vector, on the host, per launch), in the same float32 steps.
+struct Curve2 {
+  float k1_t, k0_t, k1_s, k0_s, g_t, g_s;
+};
+__host__ __device__ __forceinline__ Curve2 fold_curve2(const float* v, int c) {
+  const float gam = v[4 + c];
+  const float w_t = v[13 + c];
+  const float w_s = v[16 + c];
+  const float a_t = LOG2_E / w_t;
+  const float a_s = LOG2_E / w_s;
+  Curve2 k;
+  k.k1_t = LOG10_2 * a_t;
+  k.k0_t = -v[7 + c] * a_t;
+  k.k1_s = LOG10_2 * a_s;
+  k.k0_s = -v[10 + c] * a_s;
+  k.g_t = gam * w_t * LN_2;
+  k.g_s = gam * w_s * LN_2;
+  return k;
 }
 
 __device__ __forceinline__ float powc(float x, float p) {

@@ -119,24 +119,16 @@ using r2f::hal::TH;
 using r2f::hal::TS;
 using r2f::hal::TW;
 
-// The development in base 2 on the SFU (common.cuh's lg2_sfu / ex2_sfu,
-// absolute error about 2^-22) instead of the 1-ulp library log2f: that one
-// is a 28-instruction polynomial, and three per output were a third of the
-// kernel's instructions. With x = log10(v + flare) = log2(v + flare)
-// log10(2) and t = (x - x0) log2(e) / w, softplus(x - x0, w) = w ln(2)
-// (max(t, 0) + log2(1 + 2^-|t|)); the per-channel factors are folded once
-// per thread, so t is one FMA of log2(v + flare). No operand is subnormal
-// (v + flare >= 1e-6, 1 + 2^-|t| in [1, 2]), so the flush changes nothing.
-// It moves the density by about 1e-7, far inside the plain version's
-// tolerance (chip_smoke.py's TOL["halation_density"]).
+// The development in base 2 on the SFU (common.cuh's lg2_sfu and
+// softplus2, absolute error about 2^-22) instead of the 1-ulp library
+// log2f: that one is a 28-instruction polynomial, and three per output were
+// a third of the kernel's instructions. The per-channel factors are folded
+// once per thread (fold_curve2). It moves the density by about 1e-7, far
+// inside the plain version's tolerance (chip_smoke.py's
+// TOL["halation_density"]).
 using r2f::cp_async4;
-using r2f::ex2_sfu;
 using r2f::lg2_sfu;
-
-// softplus / (w ln 2) in terms of t (above)
-__device__ __forceinline__ float softplus2(float t) {
-  return fmaxf(t, 0.0f) + lg2_sfu(1.0f + ex2_sfu(-fabsf(t)));
-}
+using r2f::softplus2;
 
 // Stage the reflect-101 window of the tile at (y0, x0): warps on rows,
 // lanes on columns. Ends with __syncthreads().
@@ -267,25 +259,13 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
   const float f = fac[c];
   const float inv = 1.0f / (1.0f + f);
-  // the development's per-channel factors: t = l2 * k1 + k0 for l2 =
-  // log2(v + flare), and density = dmin + g_t softplus2(t_toe) - g_s
-  // softplus2(t_shoulder)
-  float flare = 0.0f, dmin = 0.0f, k1_t = 0.0f, k0_t = 0.0f, k1_s = 0.0f, k0_s = 0.0f;
-  float g_t = 0.0f, g_s = 0.0f;
+  // the development's per-channel factors (common.cuh's fold_curve2)
+  float flare = 0.0f, dmin = 0.0f;
+  r2f::Curve2 k{};
   if (dev != nullptr) {
     flare = dev[0];
     dmin = dev[1 + c];
-    const float gam = dev[4 + c];
-    const float w_t = dev[13 + c];
-    const float w_s = dev[16 + c];
-    const float a_t = r2f::LOG2_E / w_t;
-    const float a_s = r2f::LOG2_E / w_s;
-    k1_t = r2f::LOG10_2 * a_t;
-    k0_t = -dev[7 + c] * a_t;
-    k1_s = r2f::LOG10_2 * a_s;
-    k0_s = -dev[10 + c] * a_s;
-    g_t = gam * w_t * r2f::LN_2;
-    g_s = gam * w_s * r2f::LN_2;
+    k = r2f::fold_curve2(dev, c);
   }
 
   // rows ly0, ly0 + STEP, ... of column lx, by pointer increments
@@ -303,7 +283,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     float v = (e + f * blur) * inv;
     if (dev != nullptr) {
       const float l2 = lg2_sfu(fmaxf(v + flare, 1e-6f));
-      v = dmin + g_t * softplus2(fmaf(l2, k1_t, k0_t)) - g_s * softplus2(fmaf(l2, k1_s, k0_s));
+      v = dmin + k.g_t * softplus2(fmaf(l2, k.k1_t, k.k0_t)) - k.g_s * softplus2(fmaf(l2, k.k1_s, k.k0_s));
     }
     *o = v;
   }

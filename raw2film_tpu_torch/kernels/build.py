@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "demosaic", "half_size", "pyramid_down", "sep_rank", "sep_rank_narrow", "pyramid_up_rows",
     "pyramid_up", "halation", "grain_apply", "grain_apply_bw", "grain_field", "conv_w", "conv_h",
-    "print_encode", "exposure_sample",
+    "print_encode", "exposure_sample", "develop",
 )
 
 
@@ -96,6 +96,7 @@ _SIGNATURES = {
     "r2f_grain_field": (_P, _I, _I, _I, _U, _U, _P, _I, _I, _P),
     "r2f_conv1d": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _P),
     "r2f_halation": (_P, _P, _P, _P, _P, _P, _P),
+    "r2f_develop": (_P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

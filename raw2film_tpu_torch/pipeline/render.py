@@ -9,7 +9,7 @@ The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
         -> x4 row upsample (K12) -> ranks + lerp + combine (K14);
         or, for other frame sizes and pyramid levels, the full-res ranks
         (K2) plus per level K10 -> K2 -> K13 or the bilinear resize]
-    -> development (in K14's epilogue with identity masking, else plain torch)
+    -> development (in K14's epilogue with identity masking, else K16)
     -> MTF sharpness + colour grain (K2), or MTF (K2) then grain without it:
        colour (K8), black-and-white (K9), or any other mode the field
        alone (K7) and the add in plain torch
@@ -18,8 +18,8 @@ The counterpart of ``raw2film_tpu/pipeline/render.py``. Stage order:
         (``ops/lut.py``), the clip to [0, 1] and the rounding to uint8]
 
 K2 launches on frames the TPU's K2 declines stand for K4 (``ops/sep_rank.py``).
-The plain development and the CP LUT apply are PyTorch, as they are XLA on
-the TPU. No stage is ever skipped silently.
+The CP LUT apply is PyTorch, as it is XLA on the TPU. No stage is ever
+skipped silently.
 
 Planar (3, H, W) float32 at every public function; the film parameters are
 a dict of float32 tensors and a host copy of the input matrix
@@ -36,9 +36,11 @@ import torch
 
 from raw2film_tpu_torch.config import LOG10_EPS
 from raw2film_tpu_torch.device import require_cuda
+from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import burn as burn_ops
 from raw2film_tpu_torch.ops.chroma_nr import chroma_nr
 from raw2film_tpu_torch.ops import demosaic as dm
+from raw2film_tpu_torch.ops import develop as dev_ops
 from raw2film_tpu_torch.ops import fastmath as fm
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops import halation as hal_ops
@@ -94,8 +96,9 @@ def make_film_bundle(
 ) -> dict:
     """Pack the calibrated chain (film/chain.py parameter records) into a
     dict of float32 tensors with the JAX bundle's keys and shapes, plus
-    ``m_in_host`` (:func:`host_m_in`) and ``pvec_host``
-    (:func:`host_print_vec`)."""
+    ``m_in_host`` (:func:`host_m_in`), ``pvec_host``
+    (:func:`host_print_vec`) and ``develop_host``
+    (``ops/develop.py::host_params``)."""
 
     def dev(a):
         return to_device(np.array(a, np.float32), device)
@@ -110,6 +113,7 @@ def make_film_bundle(
         "m_in": dev(neg_p.m_in),
         "m_in_host": host_m_in(neg_p.m_in),
         "pvec_host": host_print_vec(print_parts),
+        "develop_host": dev_ops.host_params(neg_p.flare, neg_p.curve, neg_p.d_min, neg_p.mask),
         "flare": dev(neg_p.flare),
         "neg_curve": tuple(dev(c) for c in neg_p.curve),
         "mask": dev(neg_p.mask),
@@ -320,7 +324,17 @@ def _hd_plane(x: torch.Tensor, curve, c: int) -> torch.Tensor:
 
 
 def _develop(ep: torch.Tensor, bundle: dict) -> torch.Tensor:
-    """(3, H, W) exposure -> status densities with masking (plain torch)."""
+    """(3, H, W) exposure -> status densities with masking: K16
+    (``ops/develop.py``) on a CUDA tensor, from the bundle's
+    ``develop_host``; :func:`_develop_plain` on the CPU and inside
+    ``kb.plain_reference``."""
+    if not kb.use_kernel(ep):
+        return _develop_plain(ep, bundle)
+    return dev_ops.develop(ep, bundle["develop_host"])
+
+
+def _develop_plain(ep: torch.Tensor, bundle: dict) -> torch.Tensor:
+    """Plain version of :func:`_develop` (plain torch, one plane at a time)."""
     xp = tuple(fm.log10(torch.clamp(ep[c] + bundle["flare"], min=LOG10_EPS)) for c in range(3))
     dm_ = bundle["d_min"].reshape(3, -1)
     dp = tuple(_hd_plane(xp[c], bundle["neg_curve"], c) - dm_[c, 0] for c in range(3))
@@ -352,10 +366,11 @@ def render_chain(
     ``render.develop``, ``render.mtf_grain``, ``render.burn`` and
     ``render.print`` inside it for the stages that run; ``render.develop``
     takes the exposure as its device, so with event pairs on it records the
-    plain development's device time. Each call counts how its density was
+    development's device time. Each call counts how its density was
     developed: ``develop.fused`` where K14 developed it (halation on the /4
     mixture tier with identity masking), else ``develop.plain``, one call of
-    :func:`_develop` (halation off, colour masking, or a tier below /4)."""
+    :func:`_develop` (halation off, colour masking, or a tier below /4),
+    which launches K16 on the card."""
     with stage_timer("render"):
         return _chain(xyz, bundle, cfg, seed, grain_row_offset, burn_ref_hw, input_is_exposure)
 

@@ -10,11 +10,13 @@ import torch
 
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.ops import demosaic as dm
+from raw2film_tpu_torch.ops import develop as dev_ops
 from raw2film_tpu_torch.ops import grain as grain_ops
 from raw2film_tpu_torch.ops import halation as hal_ops
 from raw2film_tpu_torch.ops import print_encode as pe
 from raw2film_tpu_torch.ops import pyramid
 from raw2film_tpu_torch.ops import sep_rank
+from raw2film_tpu_torch.pipeline import render
 
 pytestmark = pytest.mark.cuda
 
@@ -330,6 +332,75 @@ def test_halation_kernel_tile_edges(cuda, size, hw, bw, develop):
     args = (img, us, vs, rows_up, fac, dv)
     got = _launched("halation", hal_ops.halation_mega, *args)
     assert (got - _plain(hal_ops.halation_mega, *args)).abs().max().item() <= (2e-5 if develop else 1e-5)
+
+
+def _film(cuda, negative="Kodak Portra 400", masking=1.0):
+    bundle, _ = render.load_film_bundle(negative, device=cuda, halation=False, color_masking=masking)
+    return bundle
+
+
+def _exposure(shape, cuda, seed=0):
+    """Exposures over the curve's whole range, with zeros and negatives (the
+    1e-6 clamp) in every plane."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ep = torch.rand(shape, generator=g, device=cuda) ** 3 * 20.0 - 0.05
+    ep.view(-1)[:: 7] = 0.0
+    return ep
+
+
+def _develop_case(ep, bundle):
+    got = _launched("develop", render._develop, ep, bundle)
+    want = _plain(render._develop, ep, bundle)
+    assert got.shape == ep.shape and got.is_contiguous()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+# K16 within 2e-5 of the plain development (chip_smoke.py's TOL["develop"]: K14's SFU chain)
+@pytest.mark.parametrize(
+    "hw", [(5472, 8208), (7, 1), (7, 3), (7, 5), (5, 8207), (1, 8208), (1, 5), (1, 1), (45, 70)],
+    ids=lambda hw: f"{hw[0]}x{hw[1]}",
+)
+def test_develop_kernel(cuda, hw):
+    """The full 45 MP frame (16-byte path), W = 1, 3, 5 and 8207, H = 1."""
+    ep = _exposure((3, *hw), cuda, seed=hw[1])
+    assert ep.data_ptr() % 16 == 0  # the 16-byte path where H * W % 4 == 0
+    _develop_case(ep, _film(cuda))
+
+
+@pytest.mark.parametrize("negative,masking", [("Kodak Portra 400", 0.5), ("Kodak Tri-X 400", 1.0)],
+                         ids=["colour-masking-0.5", "black-and-white"])
+def test_develop_kernel_films(cuda, negative, masking):
+    """A mask that is not the identity, and a black-and-white negative."""
+    _develop_case(_exposure((3, 37, 388), cuda, seed=3), _film(cuda, negative, masking))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_develop_kernel_views(cuda, offset):
+    """A crop's contiguous copy (the 16-byte path), and contiguous views 1
+    and 4 floats into their storage (unaligned: the 4-byte path; aligned)."""
+    bundle = _film(cuda)
+    if offset == 0:
+        ep = _exposure((3, 64, 96), cuda, seed=5)[:, 3:40, 5:81].contiguous()
+    else:
+        ep = _exposure((3 * 37 * 76 + offset,), cuda, seed=6)[offset:].view(3, 37, 76)
+    assert (ep.data_ptr() % 16 == 0) == (offset != 1)  # 37 * 76 % 4 == 0: the 16-byte path where aligned
+    _develop_case(ep, bundle)
+
+
+def test_develop_kernel_refuses(cuda):
+    """A strided, float64 or host exposure raises; one call is one launch."""
+    host = _film(cuda)["develop_host"]
+    ep = _exposure((3, 8, 16), cuda)
+    with pytest.raises(ValueError, match="not contiguous"):
+        dev_ops.develop(ep[:, :, ::2], host)
+    with pytest.raises(TypeError, match="dtype"):
+        dev_ops.develop(ep.double(), host)
+    with pytest.raises(ValueError, match="CUDA"):
+        dev_ops.develop(ep.cpu(), host)
+    before = kb.launches["develop"]
+    for _ in range(3):
+        dev_ops.develop(ep, host)
+    assert kb.launches["develop"] == before + 3
 
 
 @pytest.mark.parametrize("pattern", ["RGGB", "GBRG"])

@@ -87,16 +87,20 @@ def _jax_parts():
 
 def _assert_bundles_equal(tb, jb):
     """The JAX bundle's keys and values, plus the host copies of ``m_in``
-    (``m_in_host``) and of K3's packed print vector (``pvec_host``), both
-    read-only float32, equal to the JAX values and to the device copies."""
-    assert set(tb) == set(jb) | {"m_in_host", "pvec_host"}
-    for key in ("m_in_host", "pvec_host"):
+    (``m_in_host``), of K3's packed print vector (``pvec_host``) and of
+    K16's development parameters (``develop_host``), all read-only float32,
+    equal to the JAX values and to the device copies."""
+    assert set(tb) == set(jb) | {"m_in_host", "pvec_host", "develop_host"}
+    for key in ("m_in_host", "pvec_host", "develop_host"):
         host = tb[key]
         assert isinstance(host, np.ndarray) and host.dtype == np.float32 and not host.flags.writeable, key
     np.testing.assert_array_equal(tb["m_in_host"], np.asarray(jb["m_in"]))
     np.testing.assert_array_equal(tb["m_in_host"], tb["m_in"].cpu().numpy())
     np.testing.assert_array_equal(tb["pvec_host"], np.asarray(jpack(jb)))
     np.testing.assert_array_equal(tb["pvec_host"], tpack(tb).cpu().numpy())
+    for b, as_np in ((jb, np.asarray), (tb, lambda t: t.cpu().numpy())):
+        parts = [b["flare"], *b["neg_curve"], b["d_min"], b["mask"]]
+        np.testing.assert_array_equal(tb["develop_host"], np.concatenate([as_np(t).reshape(-1) for t in parts]))
     for k, v in jb.items():
         if isinstance(v, tuple):
             assert len(tb[k]) == len(v)

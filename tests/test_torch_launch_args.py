@@ -1,4 +1,4 @@
-"""What the K2/K4, K3, K10, K13 and K14 wrappers hand their kernels, on the CPU.
+"""What the K2/K4, K3, K10, K13, K14 and K16 wrappers hand their kernels, on the CPU.
 
 K2 and K4 take their taps by value (``ops/sep_rank.py::pack``, the
 ``r2f::sep::Ranks`` struct of ``csrc/sep_rank.cuh``), packed once per
@@ -11,8 +11,10 @@ alignment (``ops/print_encode.py::vector_path``). K14 takes its shared ranks by 
 too (``ops/halation.py::pack``, ``r2f::hal::Stack`` of ``csrc/halation.cu``),
 padded to the tap length of one of its kernels. K13 takes its x f phase
 table by value (``ops/pyramid.py::phases``); K10 picks its 16-byte path by
-shape and alignment (``ops/pyramid.py::box_vec_path``). No card is needed:
-these are the host halves of the launches."""
+shape and alignment (``ops/pyramid.py::box_vec_path``). K16 takes the
+development's parameters by value from the bundle's host copy
+(``develop_host``). No card is needed: these are the host halves of the
+launches."""
 
 import ctypes
 import os
@@ -27,7 +29,7 @@ import torch
 
 from raw2film_tpu_torch.kernels import build as kb
 from raw2film_tpu_torch.kernels import cache
-from raw2film_tpu_torch.ops import burn, chroma_nr, conv, halation, mtf, print_encode, pyramid, sep_conv, sep_rank
+from raw2film_tpu_torch.ops import burn, chroma_nr, conv, develop, halation, mtf, print_encode, pyramid, sep_conv, sep_rank
 from raw2film_tpu_torch.ops.conv import gaussian_kernel1d
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "raw2film_tpu_torch", "csrc")
@@ -611,6 +613,8 @@ class _FakeLib:
                 seen[6] = args[6]._obj
             if name == "r2f_print_encode":
                 seen[1] = np.ctypeslib.as_array((ctypes.c_float * print_encode.PVEC_LEN).from_address(args[1].value)).copy()
+            if name == "r2f_develop":
+                seen[2] = (args[2], np.ctypeslib.as_array((ctypes.c_float * develop.PARAMS).from_address(args[2])).copy())
             if name == "r2f_conv1d":
                 t = sep_conv.Taps.from_address(args[5])
                 seen[5] = (t.off, t.n, np.ctypeslib.as_array(t.t)[: min(t.n, sep_conv.MAX_TAPS)].copy(), args[5])
@@ -847,3 +851,107 @@ def test_grain_paths():
     from raw2film_tpu_torch.ops import grain
 
     assert [grain.grain_path(n) for n in (1, 3, 5, 7, 9, 13, 31)] == ["white", "taps", "taps"] + ["general"] * 4
+
+
+# K16: (3, H, W) exposures of the shapes its entry point takes the 16-byte
+# path for (H * W a multiple of 4: 4 x 8, and 3 x 4 with W not one) and the
+# 4-byte path for (H * W odd, a 1 x 1 frame, a contiguous view one float into
+# its storage).
+DEVELOP_LAUNCHES = [((4, 8), 0), ((3, 4), 0), ((5, 7), 0), ((1, 1), 0), ((4, 8), 1)]
+
+
+@pytest.mark.parametrize("hw,offset", DEVELOP_LAUNCHES)
+def test_develop_takes_its_parameters_by_value(fake_launch, hw, offset):
+    """The render's development (``render.py::_develop``) on the kernel path
+    hands K16 the exposure and a new output of its shape, the bundle's
+    develop_host itself (its 31 floats, read by the C side and passed by
+    value), the shape and the stream, and copies nothing to the device."""
+    from raw2film_tpu_torch.pipeline import render
+    from raw2film_tpu_torch.pipeline.render import load_film_bundle
+    from raw2film_tpu_torch.utils import trace
+
+    bundle, _ = load_film_bundle(device="cpu", halation=False, color_masking=0.5)
+    h, w = hw
+    base = torch.rand(3 * h * w + offset)
+    ep = base[offset:].view(3, h, w)
+    before = {k: v for k, v in trace.COUNTS.items() if k.startswith("copy.")}
+    out = render._develop(ep, bundle)
+    (name, args), = fake_launch.calls
+    assert name == "r2f_develop" and kb.launches["develop"] == 1
+    assert args[0] == ep.data_ptr() and args[1] == out.data_ptr() != ep.data_ptr()
+    assert tuple(out.shape) == (3, h, w) and out.dtype == torch.float32 and out.is_contiguous()
+    host = bundle["develop_host"]
+    assert args[2][0] == host.ctypes.data
+    np.testing.assert_array_equal(args[2][1], host)
+    assert args[3:] == [h, w, 0]
+    assert {k: v for k, v in trace.COUNTS.items() if k.startswith("copy.")} == before
+
+
+def test_develop_refuses_bad_parameters(fake_launch):
+    ep = torch.zeros(3, 4, 8)
+    with pytest.raises(ValueError, match="develop parameters"):
+        develop.develop(ep, np.zeros(develop.PARAMS, np.float64))
+    with pytest.raises(ValueError, match="develop parameters"):
+        develop.develop(ep, np.zeros(develop.PARAMS - 3, np.float32))
+    with pytest.raises(ValueError, match="exposure"):
+        develop.develop(torch.zeros(4, 4, 8), np.zeros(develop.PARAMS, np.float32))
+    with pytest.raises(ValueError, match="develop parameters"):
+        develop.host_params(0.0, [np.zeros(3)] * 6, np.zeros(3), np.eye(2))
+    assert fake_launch.calls == []
+
+
+def test_develop_params_match_the_source():
+    """The host vector's length and layout, as csrc/develop.cu reads it."""
+    src = _source("develop.cu")
+    assert develop.PARAMS == _constant("PARAMS", "develop.cu") == 31
+    for field in ("p[0]", "p[1 + c]", "p[19 + c]", "p[22 + k]"):
+        assert field in src, field
+    # the curve's factors: one fold (common.cuh) of the 19-float develop
+    # vector that K14 reads and K16's host vector begins with
+    common = _source("common.cuh")
+    for field in ("v[4 + c]", "v[13 + c]", "v[16 + c]", "v[7 + c]", "v[10 + c]"):
+        assert field in common, field
+    assert "fold_curve2(p, c)" in src and "fold_curve2(dev, c)" in _source("halation.cu")
+    assert halation.DEVELOP_LEN == 19
+
+
+def _develop_emulated(ep: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """K16's arithmetic from the host vector, in float32 as csrc/develop.cu
+    folds and applies it, with numpy's log2 and exp2 in place of the SFU's
+    (which differ from them by about 2^-22)."""
+    f32 = np.float32
+    l2e, l10_2, ln2 = (f32(v) for v in (np.log2(np.e), np.log10(2.0), np.log(2.0)))
+    dmin = p[19:22]
+    q = []
+    for c in range(3):
+        gam, w_t, w_s = p[4 + c], p[13 + c], p[16 + c]
+        a_t, a_s = l2e / w_t, l2e / w_s
+        k1_t, k0_t, k1_s, k0_s = l10_2 * a_t, -p[7 + c] * a_t, l10_2 * a_s, -p[10 + c] * a_s
+        g_t, g_s = gam * w_t * ln2, gam * w_s * ln2
+        l2 = np.log2(np.maximum(ep[c] + p[0], f32(1e-6)))
+
+        def sp2(t):
+            return np.maximum(t, f32(0)) + np.log2(f32(1) + np.exp2(-np.abs(t)))
+
+        q.append((p[1 + c] - dmin[c]) + g_t * sp2(l2 * k1_t + k0_t) - g_s * sp2(l2 * k1_s + k0_s))
+    m = p[22:].reshape(3, 3)
+    return np.stack([dmin[i] + (m[i, 0] * q[0] + m[i, 1] * q[1] + m[i, 2] * q[2]) for i in range(3)])
+
+
+@pytest.mark.parametrize("negative,masking", [("Kodak Portra 400", 1.0), ("Kodak Portra 400", 0.5),
+                                               ("Kodak Tri-X 400", 1.0)])
+def test_develop_fold_tracks_the_plain_version(negative, masking):
+    """K16's base-2 fold of the 31 host floats, emulated, against the plain
+    development on exposures that reach the 1e-6 clamp (zeros, negatives)
+    and the curve's shoulder: within the card's tolerance, 2e-5."""
+    from raw2film_tpu_torch.pipeline import render
+    from raw2film_tpu_torch.pipeline.render import load_film_bundle
+
+    bundle, _ = load_film_bundle(negative, device="cpu", halation=False, color_masking=masking)
+    rng = np.random.default_rng(16)
+    ep = np.concatenate([rng.uniform(-0.05, 0.05, (3, 8, 64)), rng.uniform(0.0, 40.0, (3, 8, 64)),
+                         np.zeros((3, 1, 64))], axis=1).astype(np.float32)
+    want = render._develop_plain(torch.from_numpy(ep), bundle).numpy()
+    got = _develop_emulated(ep, bundle["develop_host"])
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= 2e-5

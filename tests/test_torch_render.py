@@ -183,6 +183,65 @@ def test_render_hands_k3_the_host_print_vec(monkeypatch):
     assert len(seen) == 2 and all(p is bundle["pvec_host"] for p in seen)
 
 
+def _develop_entries(bundle) -> np.ndarray:
+    """The bundle's device development entries in K16's order (the
+    flare, the curve's six 3-vectors, d_min, the mask)."""
+    parts = [bundle["flare"], *bundle["neg_curve"], bundle["d_min"], bundle["mask"]]
+    return np.concatenate([np.asarray(t, np.float32).reshape(-1) for t in parts])
+
+
+@pytest.mark.parametrize("made_by", ["load_film_bundle", "load_film_bundle-masked", "bundle_from_numpy"])
+def test_develop_host_is_the_bundles_development(made_by):
+    """The bundle's develop_host, which K16 takes by value, equals its
+    device entries in the kernel's order, from the port's own build
+    (``build_film_bundle``, identity and colour masking) and from a JAX
+    bundle carried across by ``convert``; it is read-only."""
+    from raw2film_tpu_torch import load_film_bundle
+    from raw2film_tpu_torch.ops import develop as tdev
+
+    if made_by == "bundle_from_numpy":
+        bundle = bundle_from_numpy(_numpy_bundle(_build(32, 48, halation=False)[0]))
+    else:
+        masking = 0.5 if made_by.endswith("masked") else 1.0
+        bundle, _ = load_film_bundle(h=32, w=48, device="cpu", halation=False, color_masking=masking)
+    host = bundle["develop_host"]
+    assert host.dtype == np.float32 and host.shape == (tdev.PARAMS,)
+    np.testing.assert_array_equal(host, _develop_entries(bundle))
+    assert not host.flags.writeable
+    with pytest.raises(ValueError):
+        host[0] = 1.0
+    if made_by.endswith("masked"):
+        assert not np.array_equal(host[-9:], np.eye(3, dtype=np.float32).ravel())
+
+
+def test_cpu_development_is_the_plain_version_and_tracks_jax():
+    """On the CPU ``_develop`` runs its plain version, bit for bit, and
+    launches nothing; that version stays within a few ulp of the JAX
+    package's develop section (render.py:264-277) on the same bundle:
+    XLA:CPU's float32 exp2 is up to 9 ulp off, and the port's fastmath is
+    held to 16 ulp of JAX's (ROADMAP.md, known differences; 4 measured on
+    this input)."""
+    from raw2film_tpu.config import LOG10_EPS
+    from raw2film_tpu.ops import fastmath as jfm
+    from raw2film_tpu.pipeline import render as jrender
+    from raw2film_tpu_torch.kernels import build as kb
+    from raw2film_tpu_torch.pipeline import render as trender
+
+    jb = _build(64, 96, halation=False)[0]
+    bundle = bundle_from_numpy(_numpy_bundle(jb))
+    rng = np.random.default_rng(25)
+    ep = np.concatenate([rng.uniform(-0.01, 3.0, (3, 40, 96)), np.zeros((3, 24, 96))], axis=1).astype(np.float32)
+    before = kb.launches["develop"]
+    got = trender._develop(torch.from_numpy(ep), bundle).numpy()
+    assert kb.launches["develop"] == before
+    np.testing.assert_array_equal(got, trender._develop_plain(torch.from_numpy(ep), bundle).numpy())
+    xp = tuple(jfm.log10(jnp.maximum(jnp.asarray(ep[c]) + jb["flare"], LOG10_EPS)) for c in range(3))
+    dm = jnp.reshape(jb["d_min"], (3, -1))
+    dp = tuple(jrender._hd_plane(xp[c], jb["neg_curve"], c) - dm[c, 0] for c in range(3))
+    want = np.asarray(jnp.stack([q + dm[c, 0] for c, q in enumerate(jrender._matp(jb["mask"], dp))]))
+    np.testing.assert_array_max_ulp(got, want, maxulp=16)
+
+
 def test_chroma_nr_is_refused():
     """The mosaic path refuses chroma NR, as the JAX one does; the staged
     render_chain runs it (ops/chroma_nr.py), within 1 code of JAX."""
